@@ -6,20 +6,32 @@ Phases; any failure raises and the script exits non-zero:
 
 0. A CUDA device must be present; print its name and power limit.
 1. Build the CUDA kernels from ``tpu_debruijn_torch/csrc`` with nvcc.
-2. Each kernel against its plain PyTorch version on the card, bit-exact,
-   for K in {4, 15, 16, 31, 32, 47, 48, 63, 64}, stranded both ways, at the
-   main path's shapes with ragged read lengths and non-zero read exts;
-   kernel and plain times from CUDA events.
+2. Each kernel against its plain PyTorch version on the card, bit-exact;
+   kernel and plain times from CUDA events.  The two kmer kernels for K in
+   {4, 15, 16, 31, 32, 47, 48, 63, 64}, stranded both ways, at the main
+   path's shapes with ragged read lengths and non-zero read exts.  The
+   gather and pointer-jump kernels at the Pallas probes' shapes (2^18
+   entries, (2048, 128) tables, 18 hops over successors with about 1%
+   terminal), and gather_rows and rank_round also at the main path's
+   (2n, 4) doubling carry for the genome's 4,641,622 kmers; then the whole
+   ranking with the round kernel against the plain loop, on a list forest
+   and on an input with cycles.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
-   written to a FASTQ file.  Checks: both kernels launched, the table lies
-   on the card, every table kmer is in exactly one unitig, every unitig is
-   a substring of the genome or of its reverse complement, and the GFA has
-   one S line per node.
-4. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
-   checks but the substring one.
-5. The CUDA path against the CPU path on a small input: identical tables,
+   written to a FASTQ file.  Checks: the kmer kernels, gather_rows and
+   rank_round launched, the table lies on the card, every table kmer is in
+   exactly one unitig, every unitig is a substring of the genome or of its
+   reverse complement, and the GFA has one S line per node.
+4. The read-ordered path on phase 3's reads, held in memory:
+   filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
+   first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
+   to the plain linker's on the same table, unitigs equal to phase 3's,
+   rank_round launched; prints the interval count, the doubling rounds and
+   the compress seconds of both linkers.
+5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
+   checks as phase 3 but the substring one.
+6. The CUDA path against the CPU path on a small input: identical tables,
    unitig lists and GFA bytes.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -111,6 +123,25 @@ def time_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_pair(fn, plain):
+    """Kernel and plain times in the order plain, kernel, kernel, plain:
+    (best kernel ms, best plain ms, all four)."""
+    p1, k1, k2, p2 = time_ms(plain), time_ms(fn), time_ms(fn), time_ms(plain)
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def kernel_row(name, source, replaces, fn, plain, err, shape) -> dict:
+    """Time a kernel against its plain version; its record for the JSON line."""
+    ms, plain_ms, all4 = time_pair(fn, plain)
+    log(f"phase 2: {name} at {shape}: kernel {all4[0]:.4f} / {all4[1]:.4f} ms, "
+        f"plain {all4[2]:.4f} / {all4[3]:.4f} ms")
+    return {
+        "name": name, "route": "cuda", "source": f"tpu_debruijn_torch/csrc/{source}",
+        "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "shape": shape,
+    }
+
+
 def max_abs_diff(got, want, mask=None) -> int:
     err = 0
     for g, w in zip(got, want):
@@ -163,28 +194,128 @@ def phase_kernels(gen, n_reads: int, canon_rows: int, device) -> list:
     km = random_kmers(gen, spec, canon_rows, device)
     ex = torch.zeros(canon_rows, dtype=torch.int32, device=device)
     lengths = torch.full((n_reads,), READ_LEN, dtype=torch.int32, device=device)
-    rows = []
-    for name, src, replaces, fn, plain, err in (
-        ("canonical", "tpu_debruijn_torch/csrc/canonical.cu",
-         "tpu_debruijn/kernels/canonical.py:57",
-         lambda: canonicalize(spec, km, ex), lambda: canonicalize_plain(spec, km, ex), err_c),
-        ("extract_canonical", "tpu_debruijn_torch/csrc/extract_canonical.cu",
-         "tpu_debruijn/kernels/extract_canonical.py:66",
-         lambda: extract_canonical(spec, bases, lengths, seq_exts, False),
-         lambda: extract_canonical_plain(spec, bases, lengths, seq_exts, False), err_x),
-    ):
-        plain_ms = time_ms(plain)
-        ms = time_ms(fn)
-        ms2 = time_ms(fn)
-        plain_ms2 = time_ms(plain)
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": min(ms, ms2),
-            "plain_ms": min(plain_ms, plain_ms2),
-        })
-        log(f"phase 2: {name} at the main path's shape: kernel {ms:.4f} / {ms2:.4f} ms, "
-            f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms")
+    rows = [
+        kernel_row("canonical", "canonical.cu", "tpu_debruijn/kernels/canonical.py:57",
+                   lambda: canonicalize(spec, km, ex), lambda: canonicalize_plain(spec, km, ex),
+                   err_c, f"({canon_rows}, {spec.w}) int64"),
+        kernel_row("extract_canonical", "extract_canonical.cu",
+                   "tpu_debruijn/kernels/extract_canonical.py:66",
+                   lambda: extract_canonical(spec, bases, lengths, seq_exts, False),
+                   lambda: extract_canonical_plain(spec, bases, lengths, seq_exts, False),
+                   err_x, f"({n_reads}, {l}) uint8"),
+    ]
     log(f"phase 2 shapes: extract (R={n_reads}, L={l}) uint8, canonical ({canon_rows}, {spec.w}) int64")
+    return rows
+
+
+def successor_forest(gen, m: int, mean_len: int, device, cyclic: bool = False) -> torch.Tensor:
+    """(m,) int64 successors: random lists of about ``mean_len`` states;
+    with ``cyclic``, half the states lie on random cycles instead."""
+    perm = torch.randperm(m, generator=gen, device=device)
+    succ = torch.full((m,), -1, dtype=torch.int64, device=device)
+    lists = perm[: m // 2] if cyclic else perm
+    cut = torch.rand(lists.shape[0], generator=gen, device=device) < 1.0 / mean_len
+    cut[-1] = True
+    succ[lists] = torch.where(cut, -1, torch.roll(lists, -1))
+    if cyclic:
+        loop = perm[m // 2 :]
+        succ[loop] = loop[torch.randperm(loop.shape[0], generator=gen, device=device)]
+    return succ
+
+
+def phase_pointer_kernels(gen, n_states: int, device) -> list:
+    """The gather and pointer-jump kernels against their plain versions: at
+    the Pallas probes' shapes, and gather_rows and rank_round also at the
+    main path's (n_states, 4) carry; then the whole ranking."""
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch.kernels import (
+        gather_rows, gather_rows_plain, rank_round, rank_round_plain,
+        successor_walk, successor_walk_plain, take_along_axis, take_along_axis_plain,
+    )
+
+    def ri(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32, device=device)
+
+    def exact(what, got, want):
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        e = max_abs_diff(got, want)
+        check(e == 0, f"{what}: kernel != plain (max abs err {e})")
+        return e
+
+    m, r, l = 1 << 18, 2048, 128  # probe_pallas_gather.py:40, probe_pallas_gather2.py:34
+    idx, tab, tab4, tab2 = ri(m, (m,)), ri(2**31, (m,)), ri(2**31, (m, 4)), ri(2**31, (r, l))
+    idx_rows, idx_lanes, idx_flat, idx_r = ri(r, (r, l)), ri(l, (r, l)), ri(r * l, (r, l)), ri(r, (r,))
+    # probe_pallas_gather.py:102-104: about 1% terminal
+    succ = torch.where(torch.rand(m, generator=gen, device=device) < 0.99, ri(m, (m,)), -1).to(torch.int32)
+    err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_round": 0}
+    for what, family, fn, plain in (  # each probe's form: (probe, kernel, kernel call, plain call)
+        ("P1/P2 (2^18,) int32", "gather_rows",
+         lambda: gather_rows(tab, idx), lambda: gather_rows_plain(tab, idx)),
+        ("P3 (2^18, 4) int32", "gather_rows",
+         lambda: gather_rows(tab4, idx), lambda: gather_rows_plain(tab4, idx)),
+        ("P4 (2^18,) int32, 18 hops", "successor_walk",
+         lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18)),
+        ("V1 (2048, 128) axis 0", "take_along_axis",
+         lambda: take_along_axis(tab2, idx_rows, 0), lambda: take_along_axis_plain(tab2, idx_rows, 0)),
+        ("V2 (2048, 128) axis 1", "take_along_axis",
+         lambda: take_along_axis(tab2, idx_lanes, 1), lambda: take_along_axis_plain(tab2, idx_lanes, 1)),
+        ("V3 (2^18, 128) int32", "gather_rows",
+         lambda: gather_rows(tab2, idx_rows.reshape(-1)),
+         lambda: gather_rows_plain(tab2, idx_rows.reshape(-1))),
+        ("V4 (2048, 128) two takes", "take_along_axis",
+         lambda: take_along_axis(take_along_axis(tab2, idx_flat // l, 0), idx_flat % l, 1),
+         lambda: take_along_axis_plain(take_along_axis_plain(tab2, idx_flat // l, 0), idx_flat % l, 1)),
+        ("W1 (2048,) rows of 128", "gather_rows",
+         lambda: gather_rows(tab2, idx_r), lambda: gather_rows_plain(tab2, idx_r)),
+        ("W2 (2048, 128) row + lane take", "gather_rows",
+         lambda: take_along_axis(gather_rows(tab2, idx_rows[:, 0]), idx_lanes, 1),
+         lambda: take_along_axis_plain(gather_rows_plain(tab2, idx_rows[:, 0]), idx_lanes, 1)),
+    ):
+        err[family] = max(err[family], exact(what, fn(), plain()))
+        ms, plain_ms, _ = time_pair(fn, plain)
+        log(f"phase 2: {what}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # the main path's shape: the (2n, 4) int32 carry of chain linking on the
+    # E. coli table, in its first round (every pointer live)
+    s0 = successor_forest(gen, n_states, 1 << 16, device)
+    x = torch.stack([
+        s0, s0 >= 0, torch.randint(0, 1 << 30, (n_states,), generator=gen, device=device),
+        torch.where(s0 < 0, torch.arange(n_states, device=device), -1),
+    ], dim=1).to(torch.int32)
+    gidx = torch.randint(0, n_states, (n_states,), generator=gen, device=device)
+    err["gather_rows"] = max(err["gather_rows"], exact("gather_rows main shape",
+                                                       gather_rows(x, gidx), gather_rows_plain(x, gidx)))
+    spare = torch.empty_like(x)
+    err["rank_round"] = exact("rank_round main shape", rank_round(x, out=spare), rank_round_plain(x))
+
+    # the whole ranking, round kernel against the plain loop on the CPU
+    for cyclic in (False, True):
+        s = successor_forest(gen, 1 << 20, 300, device, cyclic)
+        mn = torch.randint(0, 1 << 30, s.shape, generator=gen, device=device)
+        before = rank_round.launches
+        got = C._rank_all(s, mn)
+        rounds = rank_round.launches - before
+        want = C._rank_all(s.cpu(), mn.cpu())
+        err["rank_round"] = max(err["rank_round"], exact(
+            f"_rank_all cyclic={cyclic}", tuple(t.cpu() for t in got), want))
+        log(f"phase 2: _rank_all over 2^20 states (cyclic={cyclic}) equal to the plain loop, {rounds} rounds")
+
+    shape_main = f"({n_states}, 4) int32"
+    rows = [
+        kernel_row("gather_rows", "gather.cu", "scripts/probe_pallas_gather.py:80",
+                   lambda: gather_rows(x, gidx), lambda: gather_rows_plain(x, gidx),
+                   err["gather_rows"], shape_main),
+        kernel_row("take_along_axis", "gather.cu", "scripts/probe_pallas_gather2.py:60",
+                   lambda: take_along_axis(tab2, idx_rows, 0),
+                   lambda: take_along_axis_plain(tab2, idx_rows, 0),
+                   err["take_along_axis"], f"({r}, {l}) int32, axis 0"),
+        kernel_row("successor_walk", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
+                   lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
+                   err["successor_walk"], f"({m},) int32, 18 hops"),
+        kernel_row("rank_round", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
+                   lambda: rank_round(x, out=spare), lambda: rank_round_plain(x),
+                   err["rank_round"], shape_main),
+    ]
     return rows
 
 
@@ -194,7 +325,8 @@ def phase_kernels(gen, n_reads: int, canon_rows: int, device) -> list:
 
 
 def quick_start(fastq: str, device, out_gfa: str):
-    """The README quick start on the port; returns (table, nodes, graph, stage seconds)."""
+    """The README quick start on the port; returns (reads, table, nodes,
+    graph, stage seconds)."""
     import tpu_debruijn_torch as T
 
     sync = (lambda: torch.cuda.synchronize()) if torch.device(device).type == "cuda" else (lambda: None)
@@ -211,7 +343,7 @@ def quick_start(fastq: str, device, out_gfa: str):
     graph.to_gfa(out_gfa)
     t.append(time.perf_counter())
     stages = dict(zip(("read", "count", "compress", "graph_gfa"), np.diff(t).tolist()))
-    return table, nodes, graph, stages
+    return reads, table, nodes, graph, stages
 
 
 def unitig_kmers(spec, nodes, device) -> torch.Tensor:
@@ -258,13 +390,14 @@ def check_assembly(table, nodes, graph, gfa_path: str, genome=None) -> None:
     check(gfa.count(b"\nS\t") == len(graph), "GFA S lines != graph nodes")
 
 
-def phase_assembly(name, rng, genome, tmp, check_substrings: bool) -> dict:
+def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
+    """The quick start on a read set of ``genome``; returns (info, reads, unitigs)."""
     reads = sample_reads(rng, genome, COVERAGE, READ_LEN)
     n_obs = len(reads) * (READ_LEN - K + 1)
     fq = os.path.join(tmp, f"{name}.fq")
     write_fastq(fq, reads)
     torch.cuda.reset_peak_memory_stats()
-    table, nodes, graph, stages = quick_start(fq, "cuda", os.path.join(tmp, f"{name}.gfa"))
+    reads_in, table, nodes, graph, stages = quick_start(fq, "cuda", os.path.join(tmp, f"{name}.gfa"))
     peak = torch.cuda.max_memory_allocated()
     check_assembly(table, nodes, graph, os.path.join(tmp, f"{name}.gfa"),
                    genome if check_substrings else None)
@@ -275,7 +408,91 @@ def phase_assembly(name, rng, genome, tmp, check_substrings: bool) -> dict:
         "count_obs_per_s": n_obs / stages["count"], "peak_device_bytes": peak,
     }
     os.remove(fq)
-    return info
+    return info, reads_in, nodes
+
+
+def profile_device_ms(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler: the card's busy time and
+    the kernels that took most of it (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side events only: an op's self device time repeats its kernels'
+    ops = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+           if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda o: -o[1])
+    return {"busy": sum(o[1] for o in ops), "top": ops[:top]}
+
+
+def same_chains(a, b) -> bool:
+    per_item = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("uid", "pos", "flip"))
+    per_unitig = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "length", "first_item", "last_item", "first_flip", "last_flip"))
+    return per_item and a.n_unitigs == b.n_unitigs and per_unitig
+
+
+def phase_ordered(reads, nodes_main, counters, device) -> dict:
+    """The read-ordered path on the main path's reads: obs_min table ->
+    ordered compress -> unitigs.  Kernel launches are counted over this run
+    alone; the plain linker then runs on the same table for comparison."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import compress as C
+
+    rank_round = counters["rank_round"]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = [time.perf_counter()]
+    table = T.filter_kmers([(r, 0, 0) for r in reads], k=K, stranded=False, min_obs=2,
+                           data_reduce="obs_min", device=device)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    chains, u_exts, contrib, overflow = C.compress_kmer_table_device(
+        table.spec, False, table.kmers, table.exts, first_pos=table.data
+    )
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    nodes = C.assemble_chains(table.spec, table.kmers, chains, u_exts, contrib, table.counts)
+    t.append(time.perf_counter())
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rounds_ordered = launches["rank_round"]
+
+    check(not overflow, "the ordered linker overflowed its interval cap")
+    before = rank_round.launches
+    plain = C.compress_kmer_table_device(table.spec, False, table.kmers, table.exts)
+    rounds_plain = rank_round.launches - before
+    check(same_chains(chains, plain[0]), "ordered chains != plain link_chains chains")
+    check(len(nodes) == len(nodes_main) and all(
+        np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nodes, nodes_main)
+    ), "ordered-path unitigs != the quick start's")
+    edges = C.resolve_edges(table.spec, False, table.kmers, table.exts)
+    n_iv = int(C.discovery_intervals(edges["partner_l"], edges["partner_r"], table.data)[-1].sum())
+    n = len(table)
+
+    # the compress stage of both linkers, in turns: plain, ordered, ordered, plain
+    linkers = {
+        "plain": lambda: C.compress_kmer_table_device(table.spec, False, table.kmers, table.exts),
+        "ordered": lambda: C.compress_kmer_table_device(
+            table.spec, False, table.kmers, table.exts, first_pos=table.data),
+    }
+    compress_s = {"plain": [], "ordered": []}
+    for name in ("plain", "ordered", "ordered", "plain"):
+        t0 = time.perf_counter()
+        linkers[name]()
+        torch.cuda.synchronize()
+        compress_s[name].append(time.perf_counter() - t0)
+    device_ms = {name: profile_device_ms(fn) for name, fn in linkers.items()}
+    return {
+        "table_kmers": n, "unitigs": len(nodes), "intervals": n_iv, "intervals_per_kmer": n_iv / n,
+        "rounds_ordered": rounds_ordered, "rounds_plain": rounds_plain,
+        "compress_s_first_ordered": t[2] - t[1], "compress_s_ordered": compress_s["ordered"],
+        "compress_s_plain": compress_s["plain"], "compress_device_ms": device_ms,
+        "stage_s": dict(zip(("count_obs_min", "compress_ordered", "assemble"), np.diff(t).tolist())),
+        "peak_device_bytes": peak, "launches": launches,
+    }
 
 
 def phase_device_vs_cpu(rng, tmp) -> None:
@@ -287,7 +504,7 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     out = {}
     for dev in ("cuda", "cpu"):
         gfa = os.path.join(tmp, f"small_{dev}.gfa")
-        table, nodes, graph, _ = quick_start(fq, dev, gfa)
+        _, table, nodes, graph, _ = quick_start(fq, dev, gfa)
         with open(gfa, "rb") as f:
             out[dev] = (table_to_numpy(table), nodes, f.read())
     (tc, nc, gc), (tp, np_, gp) = out["cuda"], out["cpu"]
@@ -297,7 +514,7 @@ def phase_device_vs_cpu(rng, tmp) -> None:
         np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nc, np_)
     ), "CUDA and CPU unitigs differ")
     check(gc == gp, "CUDA and CPU GFA bytes differ")
-    log(f"phase 5: CUDA == CPU on {len(tc['kmers'])} kmers, {len(nc)} unitigs, {len(gc)} GFA bytes")
+    log(f"phase 6: CUDA == CPU on {len(tc['kmers'])} kmers, {len(nc)} unitigs, {len(gc)} GFA bytes")
 
 
 def main(argv=None) -> int:
@@ -317,8 +534,9 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
+    from tpu_debruijn_torch import kernels as KN
     from tpu_debruijn_torch.io import native
-    from tpu_debruijn_torch.kernels import _build, canonicalize, extract_canonical
+    from tpu_debruijn_torch.kernels import _build
 
     log(f"native host codec loaded: {native.native_available()}")
 
@@ -333,30 +551,50 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
 
-    # phase 2, at the main path's shapes: every read of phase 3, and the
-    # 3n canonicalized rows of resolve_edges for a table of the genome's kmers
+    # phase 2, at the main path's shapes: every read of phase 3, the 3n
+    # canonicalized rows of resolve_edges and the 2n-state doubling carry
+    # for a table of the genome's kmers
     n_reads = -(-COVERAGE * ECOLI_LEN // READ_LEN)
-    rows = phase_kernels(gen, n_reads, 3 * (ECOLI_LEN - K + 1), "cuda")
+    n_kmers = ECOLI_LEN - K + 1
+    rows = phase_kernels(gen, n_reads, 3 * n_kmers, "cuda")
+    torch.cuda.empty_cache()
+    rows += phase_pointer_kernels(gen, 2 * n_kmers, "cuda")
     torch.cuda.empty_cache()
 
+    # every wrapper counts its launches; the kernels each path must launch
+    counters = {
+        "canonical": KN.canonicalize, "extract_canonical": KN.extract_canonical,
+        "gather_rows": KN.gather_rows, "take_along_axis": KN.take_along_axis,
+        "successor_walk": KN.successor_walk, "rank_round": KN.rank_round,
+    }
+    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_round")
+    by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3: the main path
         genome = make_genome(rng, ECOLI_LEN, repeat_rich=False)
-        canonicalize.launches = 0
-        extract_canonical.launches = 0
-        main = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
-        launches = {"canonical": canonicalize.launches, "extract_canonical": extract_canonical.launches}
-        for name, n in launches.items():
-            check(n > 0, f"the main path never launched kernel {name}")
-        for r in rows:
-            r["launches"] = launches[r["name"]]
+        for fn in counters.values():
+            fn.launches = 0
+        main, reads, nodes_main = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
+        by_path["quick_start"] = {name: fn.launches for name, fn in counters.items()}
         log("phase 3 (main path): " + json.dumps(main))
 
-        # phase 4
-        rich = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True), tmp, False)
-        log("phase 4 (repeat-rich): " + json.dumps(rich))
+        # phase 4: the read-ordered path on the same reads
+        ordered = phase_ordered(reads, nodes_main, counters, "cuda")
+        by_path["ordered"] = ordered["launches"]
+        del reads, nodes_main
+        log("phase 4 (ordered path): " + json.dumps(ordered))
+        for path, launches in by_path.items():
+            for name in on_path:
+                check(launches[name] > 0, f"the {path} path never launched kernel {name}")
+        for r in rows:
+            r["launches_by_path"] = {path: by_path[path][r["name"]] for path in by_path}
+            r["launches"] = sum(r["launches_by_path"].values())
 
         # phase 5
+        rich, _, _ = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True), tmp, False)
+        log("phase 5 (repeat-rich): " + json.dumps(rich))
+
+        # phase 6
         phase_device_vs_cpu(rng, tmp)
 
     log(json.dumps({"kernels": rows}))

@@ -16,6 +16,14 @@ from tpu_debruijn_torch.kernels import (
     canonicalize_plain,
     extract_canonical,
     extract_canonical_plain,
+    gather_rows,
+    gather_rows_plain,
+    rank_round,
+    rank_round_plain,
+    successor_walk,
+    successor_walk_plain,
+    take_along_axis,
+    take_along_axis_plain,
 )
 
 KS = [4, 15, 16, 31, 32, 47, 48, 63, 64]
@@ -58,3 +66,113 @@ def test_extract_canonical_kernel_matches_plain(cuda, k, stranded):
     assert torch.equal(gv, pv)
     assert torch.equal(gk[pv], pk[pv])
     assert torch.equal(ge[pv], pe[pv])
+
+
+def _forest(rng, m, cyclic):
+    """Successors over m states: random lists, every other one closed into
+    a cycle when ``cyclic``."""
+    succ = np.full(m, -1, np.int64)
+    parts = np.split(rng.permutation(m), np.sort(rng.choice(np.arange(1, m), m // 50, replace=False)))
+    for j, part in enumerate(parts):
+        succ[part[:-1]] = part[1:]
+        if cyclic and j % 2:
+            succ[part[-1]] = part[0]
+    return succ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("c", [None, 1, 2, 3, 4, 5, 8, 128])
+def test_gather_rows_kernel_matches_plain(cuda, c, dtype, idx_dtype):
+    rng = np.random.default_rng(0)
+    shape = (5000,) if c is None else (5000, c)
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, shape)).to(dtype).to(cuda)
+    idx = torch.from_numpy(rng.integers(-50, 5050, 20_000)).to(idx_dtype).to(cuda)
+    before = gather_rows.launches
+    got = gather_rows(tab, idx)
+    assert gather_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(tab, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_axis_kernel_matches_plain(cuda, axis, idx_dtype):
+    rng = np.random.default_rng(1)
+    r, l = 2048, 128
+    tab = torch.from_numpy(rng.integers(0, 2**31, (r, l)).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-3, (r, l)[axis] + 3, (r, l))).to(idx_dtype).to(cuda)
+    got = take_along_axis(tab, idx, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(got, take_along_axis_plain(tab, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["probe", "cycles", "list"])
+def test_successor_walk_kernel_matches_plain(cuda, kind):
+    rng = np.random.default_rng(2)
+    m = 1 << 18
+    if kind == "probe":
+        succ = np.where(rng.random(m) < 0.99, rng.integers(0, m, m), -1)
+    elif kind == "cycles":
+        succ = rng.permutation(m)
+    else:
+        succ = np.append(np.arange(1, m), -1)
+    succ = torch.from_numpy(succ.astype(np.int32)).to(cuda)
+    got = successor_walk(succ, 18)
+    torch.cuda.synchronize()
+    assert torch.equal(got, successor_walk_plain(succ, 18))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cyclic", [False, True])
+def test_rank_round_kernel_matches_plain(cuda, cyclic):
+    """One round, then the whole ranking, kernel against plain; cycle
+    states run the full round count."""
+    from tpu_debruijn_torch import compress as TC
+
+    rng = np.random.default_rng(3)
+    m = 200_003
+    succ = _forest(rng, m, cyclic)
+    mnmo = rng.integers(0, 1 << 30, m)
+    x = torch.from_numpy(np.stack([succ, succ >= 0, mnmo, np.where(succ < 0, np.arange(m), -1)], 1))
+    x = x.to(torch.int32).to(cuda)
+    got, flag = rank_round(x)
+    want, want_flag = rank_round_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(flag, want_flag)
+    args = [torch.from_numpy(a) for a in (succ, mnmo)]
+    before = rank_round.launches
+    ranked = TC._rank_all(*[a.to(cuda) for a in args])
+    rounds = rank_round.launches - before
+    plain = TC._rank_all(*args)
+    for g, w in zip(ranked, plain):
+        assert torch.equal(g.cpu(), w)
+    assert (rounds == 18) == cyclic  # ceil(log2(m + 1)) = 18 rounds with cycles
+
+
+@pytest.mark.cuda
+def test_ordered_path_cuda_matches_cpu(cuda):
+    """obs_min table -> ordered compress: the same chains on the card and
+    on the CPU, through the round kernel."""
+    from tpu_debruijn_torch import compress as TC
+    from tpu_debruijn_torch import filter as TF
+
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - 150, 4000)
+    reads = [(genome[s : s + 150], 0, 0) for s in starts]
+    out = {}
+    for dev in ("cpu", cuda):
+        table = TF.filter_kmers(reads, 31, min_obs=2, data_reduce="obs_min", device=dev)
+        before = rank_round.launches
+        chains, _, _, overflow = TC.compress_kmer_table_device(
+            table.spec, False, table.kmers, table.exts, first_pos=table.data
+        )
+        assert not overflow
+        assert (rank_round.launches > before) == (dev == cuda)
+        out[str(dev)] = [t.cpu() for t in (table.data, chains.uid, chains.pos, chains.flip, chains.length)]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, w)

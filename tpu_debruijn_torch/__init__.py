@@ -12,17 +12,26 @@ Ported: the README quick start,
     read_fastq -> filter_kmers -> compress_kmers
                -> from_compress_output(...).finish() -> to_gfa
 
-with the modules it runs: ``bases``, ``io`` (FASTA/FASTQ reading),
-``kmer``, ``exts``, ``sorting``, ``filter`` (``data_reduce`` 'label_first'
-and 'none'), ``compress`` (default policy), ``dna`` (``PackedSeqSet``),
-``graph`` (``BaseGraph``, link table, GFA export), ``convert`` and the two
-kernels in ``kernels/``.
+and the read-ordered chain linking,
 
-Not ported yet: ``link_chains_ordered``, ``filter_kmers_streaming`` and the
-block merges, the summarizer/policy layer (set and eq-class filters,
-``CompressionSpec`` variants, rich compression), ``msp``, ``parallel``,
-the rest of ``graph``/``clean``/``neighbors``/``dna``, device unitig
-assembly, and ``stream_fastx_blocks``.
+    filter_kmers(data_reduce="obs_min")
+        -> compress.compress_kmer_table_device(first_pos=table.data)
+        -> compress.assemble_chains
+
+with the modules they run: ``bases``, ``io`` (FASTA/FASTQ reading),
+``kmer``, ``exts``, ``sorting``, ``filter`` (``data_reduce`` 'label_first',
+'min', 'obs_min' and 'none'), ``compress`` (default policy; ``link_chains``
+and ``link_chains_ordered``), ``dna`` (``PackedSeqSet``), ``graph``
+(``BaseGraph``, link table, GFA export), ``convert`` and the six kernels in
+``kernels/``: the two kmer kernels, and the gathers and pointer jumps that
+replace the Pallas gather probes, among them the doubling round of chain
+linking.
+
+Not ported yet: ``filter_kmers_streaming`` and the block merges, the
+summarizer/policy layer (``data_reduce`` 'max' and 'sum', set and
+eq-class filters, ``CompressionSpec`` variants, rich compression),
+``msp``, ``parallel``, the rest of ``graph``/``clean``/``neighbors``/``dna``,
+device unitig assembly, and ``stream_fastx_blocks``.
 """
 
 from tpu_debruijn_torch.compress import compress_kmers

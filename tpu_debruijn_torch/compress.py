@@ -13,13 +13,19 @@ CompressFromHash, compression.rs:355-615), with the same three steps:
    (kmer, orientation) states is pointer-doubled to give every kmer its
    unitig, position and orientation.  Cycles are cut at the minimum kmer,
    where the reference's seed loop would break them, and re-ranked.
-3. **Emission**: of the two mirror traversals of a chain, the one where
-   the chain's minimum kmer keeps its stored orientation; unitig ids in
-   increasing chain-minimum order.
+   Each doubling round is the ``rank_round`` kernel on CUDA
+   (``kernels/pointer_jump.py``).  :func:`link_chains_ordered` gives the
+   same result by ranking only a contracted graph of read-adjacent
+   intervals, given each kmer's first-occurrence index.
+3. **Emission** (:func:`_emit_chains`, shared by both linkers): of the two
+   mirror traversals of a chain, the one where the chain's minimum kmer
+   keeps its stored orientation; unitig ids in increasing chain-minimum
+   order.
 
 The JAX package's TPU workarounds (gather-cliff padding, pow2 table
-padding, the on-device assembly branch for the TPU) are not ported.
-Unitig sequences are assembled on the host from the chain labels.
+padding, packed int32 lanes, the on-device assembly branch for the TPU)
+are not ported.  Unitig sequences are assembled on the host from the chain
+labels.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from tpu_debruijn_torch import exts as E
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize
+from tpu_debruijn_torch.kernels.gather import gather_rows
+from tpu_debruijn_torch.kernels.pointer_jump import rank_round
 from tpu_debruijn_torch.kmer import KmerSpec
 
 LEFT, RIGHT = E.LEFT, E.RIGHT
@@ -143,91 +151,90 @@ def _succ_states(partner_l, partner_r, in_l, in_r):
     return torch.stack([one(partner_r, in_r), one(partner_l, in_l)], dim=1).reshape(-1)
 
 
-def _rank_all(succ: torch.Tensor, mnmo: torch.Tensor):
+def _rank_all(succ: torch.Tensor, mnmo: torch.Tensor, dist0=None, end0=None):
     """Pointer-doubling list ranking: (succ_final, dist_to_end, mnmo_min,
-    end_state) per state.
+    end_state) per state, int64.
 
-    A Python loop of at most ceil(log2(m+1)) rounds, each one (m, 4) row
-    gather; it stops once every pointer has resolved.  Cycle states never
-    resolve: their dist/end are garbage and the caller re-ranks them.
+    ``dist0``/``end0`` seed each state's edge weight and terminal id (the
+    contracted ranking of :func:`link_chains_ordered` seeds interval lengths
+    and exit states); by default a live edge weighs 1 and a terminal state
+    ends at itself.
+
+    The carry is one (m, 4) int32 matrix and each round one
+    :func:`rank_round` (the kernel on CUDA), double-buffered: at most
+    ceil(log2(m+1)) rounds, stopping once the round's flag says every
+    pointer resolved.  Cycle states never resolve: their dist/end are
+    garbage and the caller re-ranks them.
     """
     m = succ.shape[0]
-    dist = (succ >= 0).to(torch.int64)
-    end = torch.where(succ == -1, torch.arange(m, device=succ.device), -1)
-    x = torch.stack([succ, dist, mnmo, end], dim=1)
+    if m >= 1 << 31:
+        raise ValueError(f"_rank_all: {m} states do not fit the int32 carry")
+    if dist0 is None:
+        dist0 = succ >= 0
+    if end0 is None:
+        end0 = torch.where(succ == -1, torch.arange(m, device=succ.device), -1)
+    x = torch.stack([t.to(torch.int32) for t in (succ, dist0, mnmo, end0)], dim=1)
+    spare = torch.empty_like(x)
     for _ in range(max(1, math.ceil(math.log2(m + 1)))):
-        s = x[:, 0]
-        has = s >= 0
-        g = x[s.clamp(0, m - 1)]
-        x = torch.stack([
-            torch.where(has, g[:, 0], s),
-            x[:, 1] + torch.where(has, g[:, 1], 0),
-            torch.where(has, torch.minimum(x[:, 2], g[:, 2]), x[:, 2]),
-            torch.where(has, g[:, 3], x[:, 3]),
-        ], dim=1)
-        if not bool((x[:, 0] >= 0).any()):
+        nxt, unresolved = rank_round(x, out=spare)
+        x, spare = nxt, x
+        if not bool(unresolved):
             break
+    x = x.to(torch.int64)
     return x[:, 0], x[:, 1], x[:, 2], x[:, 3]
 
 
-def link_chains(partner_l, partner_r, in_l, in_r) -> Chains:
-    """Label each item with (unitig id, position, orientation).
+def _rank_cutting_cycles(succ0, mnmo0, node, orient, state_of):
+    """Rank, and where cycles remain cut each one where the reference's
+    seed loop would (compression.rs:450-479) and rank again: at the exit of
+    its min node in stored orientation, and at the mirror edge into the min
+    node flipped.  ``state_of`` maps an item id to its orientation-0 state.
 
-    Precondition: partner edges are mutual and entry-side consistent, as
-    :func:`resolve_edges` leaves them; chain starts then follow from
-    ``partner < 0`` alone.
+    Returns (dist, mnmo, end_id, extra_starts): the states a cut edge
+    pointed into become chain starts.
     """
-    n = partner_l.shape[0]
-    m = 2 * n
-    dev = partner_l.device
-    node = torch.arange(n, device=dev).repeat_interleave(2)
-    orient = torch.arange(2, device=dev).repeat(n)
-    succ0 = _succ_states(partner_l, partner_r, in_l, in_r)
-    # packed (min node, orient): node ids are unique within a chain, so the
-    # packed min is the min node with its orientation
-    mnmo0 = (node << 1) | orient
-
+    m = succ0.shape[0]
     succ_f, dist, mnmo, end_id = _rank_all(succ0, mnmo0)
     is_cycle = succ_f >= 0
-    extra_starts = torch.zeros(m, dtype=torch.bool, device=dev)
+    extra_starts = torch.zeros(m, dtype=torch.bool, device=succ0.device)
     if bool(is_cycle.any()):
-        # cut each cycle where the reference's seed loop would: the exit of
-        # its min node in stored orientation, and the mirror edge into the
-        # min node flipped (compression.rs:450-479); then rank again
         mn_f = mnmo >> 1
         cut = is_cycle & (
-            ((node == mn_f) & (orient == 0)) | (succ0 == 2 * mn_f + 1)
+            ((node == mn_f) & (orient == 0)) | (succ0 == state_of(mn_f) + 1)
         )
         _, dist, mnmo, end_id = _rank_all(torch.where(cut, -1, succ0), mnmo0)
-        # states a cut edge pointed into become chain starts
         tgt = succ0[cut]
         extra_starts[tgt[(tgt >= 0) & (tgt < m)]] = True
+    return dist, mnmo, end_id, extra_starts
 
-    # a state has no predecessor iff its entry-side partner is absent:
-    # (i, 0) is entered via stored L, (i, 1) via stored R
-    no_pred = torch.stack([partner_l < 0, partner_r < 0], dim=1).reshape(m)
-    is_start = no_pred | extra_starts
 
+def _emit_chains(n, node, orient, dist, mnmo, end_id, is_start, node_of_end) -> Chains:
+    """Emission tail shared by the chain linkers: keep the traversal where
+    the chain's min node is in stored orientation, number unitigs in
+    increasing chain-min order (the reference's seed order,
+    compression.rs:574), and label every item with (uid, position, flip).
+
+    ``node``/``orient`` give each of the 2n states its item id and
+    orientation; ``node_of_end`` maps an end-state index to its item id.
+    Per-item results are indexed by state pair: entry i covers states 2i
+    and 2i+1.
+    """
+    m = node.shape[0]
+    dev = node.device
     mn, mo = mnmo >> 1, mnmo & 1
-    # keep the traversal where the chain's min node is in stored
-    # orientation; unitig ids in increasing chain-min order (the
-    # reference's seed order, compression.rs:574)
     emit = torch.nonzero(is_start & (mo == 0)).flatten()
     emit = emit[torch.argsort(mn[emit])]
     n_unitigs = emit.shape[0]
     c_end = end_id[emit]
     length_u = dist[emit] + 1
-    uidx = torch.arange(n_unitigs, device=dev)
 
     # every state reads its unitig id and length through its chain's end
     ok = (c_end >= 0) & (c_end < m)
-    tbl_uid = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    tbl_len = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    tbl_uid[c_end[ok]] = uidx[ok]
-    tbl_len[c_end[ok]] = length_u[ok]
-    ec = end_id.clamp(0, max(m - 1, 0))
-    uid_state = torch.where(end_id >= 0, tbl_uid[ec], -1)
-    pos_state = tbl_len[ec] - 1 - dist
+    tbl = torch.full((m, 2), -1, dtype=torch.int64, device=dev)
+    tbl[c_end[ok]] = torch.stack([torch.arange(n_unitigs, device=dev)[ok], length_u[ok]], dim=1)
+    g = gather_rows(tbl, end_id)
+    uid_state = torch.where(end_id >= 0, g[:, 0], -1)
+    pos_state = g[:, 1] - 1 - dist
 
     # each item has exactly one emitted state
     emit_pair = (uid_state >= 0).reshape(n, 2)
@@ -244,10 +251,161 @@ def link_chains(partner_l, partner_r, in_l, in_r) -> Chains:
         n_unitigs=n_unitigs,
         length=length_u,
         first_item=node[emit],
-        last_item=c_end.clamp(0, max(m - 1, 0)) >> 1,
+        last_item=node_of_end(c_end.clamp(0, max(m - 1, 0))),
         first_flip=orient[emit],
         last_flip=c_end & 1,
     )
+
+
+def link_chains(partner_l, partner_r, in_l, in_r) -> Chains:
+    """Label each item with (unitig id, position, orientation).
+
+    Precondition: partner edges are mutual and entry-side consistent, as
+    :func:`resolve_edges` leaves them; chain starts then follow from
+    ``partner < 0`` alone.
+    """
+    n = partner_l.shape[0]
+    dev = partner_l.device
+    node = torch.arange(n, device=dev).repeat_interleave(2)
+    orient = torch.arange(2, device=dev).repeat(n)
+    succ0 = _succ_states(partner_l, partner_r, in_l, in_r)
+    # packed (min node, orient): node ids are unique within a chain, so the
+    # packed min is the min node with its orientation
+    mnmo0 = (node << 1) | orient
+    dist, mnmo, end_id, extra_starts = _rank_cutting_cycles(
+        succ0, mnmo0, node, orient, lambda i: 2 * i
+    )
+    # a state has no predecessor iff its entry-side partner is absent:
+    # (i, 0) is entered via stored L, (i, 1) via stored R
+    no_pred = torch.stack([partner_l < 0, partner_r < 0], dim=1).reshape(2 * n)
+    return _emit_chains(n, node, orient, dist, mnmo, end_id, no_pred | extra_starts,
+                        node_of_end=lambda e: e >> 1)
+
+
+def discovery_intervals(partner_l, partner_r, first_pos):
+    """Items in discovery order and their read-adjacent intervals (steps 1
+    and 2 of :func:`link_chains_ordered`).
+
+    Returns (orig, rank, rlp, rrp, bnd): ``orig[x]`` is the item of rank
+    ``x`` (increasing ``first_pos``, ties by item id), ``rank`` its inverse,
+    ``rlp``/``rrp`` the ranks of rank ``x``'s left/right partners (-1:
+    none), and ``bnd`` marks the first rank of each interval, a maximal run
+    of ranks each a partner of the one before.
+    """
+    n = partner_l.shape[0]
+    pos = torch.arange(n, device=partner_l.device)
+    # the JAX package clamps below its sentinel for invalid items; the same
+    # clamp keeps the order identical for any first_pos
+    orig = torch.sort(first_pos.to(torch.int64).clamp(0, 0x7FFFFFFE), stable=True).indices
+    rank = torch.empty_like(orig)
+    rank[orig] = pos
+    plo, pro = partner_l[orig], partner_r[orig]
+    rlp = torch.where(plo >= 0, rank[plo.clamp(min=0)], -1)
+    rrp = torch.where(pro >= 0, rank[pro.clamp(min=0)], -1)
+    join = (rlp == pos + 1) | (rrp == pos + 1)  # rank x continues into x + 1
+    bnd = torch.ones(n, dtype=torch.bool, device=pos.device)
+    bnd[1:] = ~join[:-1]
+    return orig, rank, rlp, rrp, bnd
+
+
+def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
+    """Chain linking by read-adjacency contraction: :func:`link_chains`'
+    result, with pointer doubling on a graph of intervals.
+
+    ``first_pos`` is each item's first-occurrence observation index
+    (``filter_kmers(data_reduce="obs_min")``).  In that order most chain
+    edges join rank-adjacent items, so chains contract into intervals of
+    consecutive ranks; each interval becomes two contracted nodes (its two
+    traversals) weighted by its length, and only those are ranked.  A
+    cycle among them falls back to ranking every state.  The result does
+    not depend on ``first_pos``: any values only change how far the graph
+    contracts.
+
+    ``cap`` bounds the interval count.  Returns (chains, overflow):
+    ``overflow`` is True when there are more than ``cap`` intervals, where
+    the JAX package's chains are invalid and its callers fall back to
+    :func:`link_chains`; here the chains then come from that fallback.
+    Lanes are int64, so there is no limit on n below the carry's 2^31
+    states.
+    """
+    n = partner_l.shape[0]
+    dev = partner_l.device
+    orig, rank, rlp, rrp, bnd = discovery_intervals(partner_l, partner_r, first_pos)
+    starts = torch.nonzero(bnd).flatten()  # interval first ranks, in order
+    n_iv = starts.shape[0]
+    if n_iv > cap:
+        return link_chains(partner_l, partner_r, in_l, in_r), True
+
+    pos = torch.arange(n, device=dev)
+    is_end = torch.ones(n, dtype=torch.bool, device=dev)
+    is_end[:-1] = bnd[1:]
+    icid = torch.cumsum(bnd, 0) - 1  # interval id of each rank
+    # orientation of the traversal that moves to higher ranks (state (x, 0)
+    # exits stored R and is entered via stored L)
+    ofwd = torch.where(
+        rrp == pos + 1, 0,
+        torch.where(rlp == pos + 1, 1,
+                    torch.where(rlp == pos - 1, 0, torch.where(rrp == pos - 1, 1, 0))),
+    )
+    a_of = S.copy_first(pos, bnd)   # interval first rank, per rank
+    b_of = S.copy_last(pos, is_end)  # interval last rank, per rank
+    ca, cb = starts, b_of[starts]
+    ca_of, cb_of = ofwd[ca], ofwd[cb]
+    clen = cb - ca + 1
+    # the chain-min aggregate (item << 1 | forward orientation) per interval
+    cmn = S.segment_min((orig << 1) | ofwd, icid, n_iv)
+
+    # sigma states: 2x + o is rank x in orientation o
+    succ_sig = _succ_states(rlp, rrp, in_l[orig], in_r[orig])
+    node_sig = orig.repeat_interleave(2)
+    orient_sig = torch.arange(2, device=dev).repeat(n)
+    no_pred = torch.stack([rlp < 0, rrp < 0], dim=1).reshape(2 * n)
+
+    def contracted(tsig):
+        # target sigma state -> contracted node 2 * interval + traversal: it
+        # has a predecessor, so it enters exactly one traversal, T+ iff it is
+        # its interval's first rank in forward orientation
+        t = tsig.clamp(min=0) >> 1
+        tv = torch.where(bnd[t] & ((tsig.clamp(min=0) & 1) == ofwd[t]), 0, 1)
+        return torch.where(tsig >= 0, 2 * icid[t] + tv, -1)
+
+    # T+ exits at (b, ofwd_b), T- at (a, 1 - ofwd_a)
+    exit_p, exit_m = 2 * cb + cb_of, 2 * ca + (1 - ca_of)
+    cs_p, cs_m = contracted(succ_sig[exit_p]), contracted(succ_sig[exit_m])
+
+    def pair(p, q):
+        return torch.stack([p, q], dim=1).reshape(-1)
+
+    csucc, cdist, cmnmo, cend = _rank_all(
+        pair(cs_p, cs_m),
+        pair(cmn, cmn ^ 1),
+        pair(clen - 1 + (cs_p >= 0), clen - 1 + (cs_m >= 0)),
+        pair(torch.where(cs_p == -1, exit_p, -1), torch.where(cs_m == -1, exit_m, -1)),
+    )
+    if bool((csucc >= 0).any()):
+        # a cycle of intervals (rare): rank every sigma state
+        dist, mnmo, end_id, extra_starts = _rank_cutting_cycles(
+            succ_sig, (node_sig << 1) | orient_sig, node_sig, orient_sig,
+            lambda i: 2 * rank[i.clamp(0, max(n - 1, 0))],
+        )
+    else:
+        # expand: every rank reads its interval's results; the chain-min
+        # aggregate is read at start states only, which are traversal entries
+        d_p, d_m = cdist[0::2][icid], cdist[1::2][icid]
+        e_p, e_m = cend[0::2][icid], cend[1::2][icid]
+        q_p, q_m = pos - a_of, b_of - pos
+        fwd0 = ofwd == 0
+        dist = pair(torch.where(fwd0, d_p - q_p, d_m - q_m), torch.where(fwd0, d_m - q_m, d_p - q_p))
+        end_id = pair(torch.where(fwd0, e_p, e_m), torch.where(fwd0, e_m, e_p))
+        mnmo = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+        mnmo[2 * ca + ca_of] = cmnmo[0::2]
+        mnmo[2 * cb + (1 - cb_of)] = cmnmo[1::2]
+        extra_starts = torch.zeros(2 * n, dtype=torch.bool, device=dev)
+
+    ch = _emit_chains(n, node_sig, orient_sig, dist, mnmo, end_id, no_pred | extra_starts,
+                      node_of_end=lambda e: node_sig[e])
+    # per-rank labels back to item order
+    return dataclasses.replace(ch, uid=ch.uid[rank], pos=ch.pos[rank], flip=ch.flip[rank]), False
 
 
 def unitig_end_exts(exts: torch.Tensor, chains: Chains) -> torch.Tensor:
@@ -270,18 +428,32 @@ def unitig_end_exts(exts: torch.Tensor, chains: Chains) -> torch.Tensor:
 
 
 def compress_kmer_table_device(spec: KmerSpec, stranded: bool, kmers: torch.Tensor,
-                               exts: torch.Tensor):
+                               exts: torch.Tensor, first_pos=None, order_cap=None):
     """Device compression of a sorted unique table: (chains, unitig exts,
     per-kmer contributed base).  compress_kmers_with_hash equivalent
-    (compression.rs:588-594)."""
+    (compression.rs:588-594).
+
+    With ``first_pos`` (each kmer's first-occurrence observation index,
+    ``filter_kmers(data_reduce="obs_min")``'s ``data``) chain linking runs
+    through :func:`link_chains_ordered`, with ``order_cap`` intervals at
+    most (default ``max(2**14, n // 8)``), and the result gains a fourth
+    element, ``overflow``.
+    """
     edges = resolve_edges(spec, stranded, kmers, exts)
-    chains = link_chains(edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"])
+    args = (edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"])
+    if first_pos is None:
+        chains, overflow = link_chains(*args), None
+    else:
+        cap = order_cap or max(1 << 14, kmers.shape[0] // 8)
+        chains, overflow = link_chains_ordered(*args, first_pos, cap)
     u_exts = unitig_end_exts(exts, chains)
     # the base each kmer adds to its unitig: its oriented last base
     contrib = torch.where(
         chains.flip, (~KM.first_base(spec, kmers)) & 3, KM.last_base(spec, kmers)
     )
-    return chains, u_exts, contrib
+    if first_pos is None:
+        return chains, u_exts, contrib
+    return chains, u_exts, contrib, overflow
 
 
 def _sum_sat_u16(vals: np.ndarray, uid: np.ndarray, n_unitigs: int) -> np.ndarray:
@@ -331,21 +503,11 @@ def assemble_unitigs(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
     ]
 
 
-def compress_kmers(table, *, device="cuda"):
-    """KmerTable -> list of unitigs [(bases, exts, data)] (compression.rs:588).
-
-    The default policy of the JAX package: every mergeable pair merges and
-    a unitig's data is the u16-saturating sum of its kmers' counts.  The
-    table is moved to ``device`` first.
-    """
-    n = len(table)
-    if n == 0:
-        return []
-    spec = table.spec
-    kmers = table.kmers.to(device)
-    chains, u_exts, contrib = compress_kmer_table_device(
-        spec, table.stranded, kmers, table.exts.to(device)
-    )
+def assemble_chains(spec: KmerSpec, kmers: torch.Tensor, chains: Chains, u_exts, contrib,
+                    counts) -> list:
+    """Host: :func:`assemble_unitigs` on the output of
+    :func:`compress_kmer_table_device` for a table's ``kmers`` and
+    ``counts``, wherever they lie."""
     cpu = lambda t: t.cpu().numpy()
     return assemble_unitigs(
         spec,
@@ -358,5 +520,21 @@ def compress_kmers(table, *, device="cuda"):
         chains.n_unitigs,
         cpu(u_exts),
         cpu(contrib),
-        cpu(table.counts),
+        cpu(counts),
     )
+
+
+def compress_kmers(table, *, device="cuda"):
+    """KmerTable -> list of unitigs [(bases, exts, data)] (compression.rs:588).
+
+    The default policy of the JAX package: every mergeable pair merges and
+    a unitig's data is the u16-saturating sum of its kmers' counts.  The
+    table is moved to ``device`` first.
+    """
+    if len(table) == 0:
+        return []
+    kmers = table.kmers.to(device)
+    chains, u_exts, contrib = compress_kmer_table_device(
+        table.spec, table.stranded, kmers, table.exts.to(device)
+    )
+    return assemble_chains(table.spec, kmers, chains, u_exts, contrib, table.counts)

@@ -97,24 +97,31 @@ def count_kmers(
 
     data_reduce: 'label_first' keeps the label of each kmer's first
     observation in read order (the stable sort keeps it at the run start);
+    'min' keeps the least label of its observations; 'obs_min' keeps its
+    first observation's slot index over all R * (L - K + 1) slots of the
+    padded batch, invalid slots counted (the order
+    ``compress_kmer_table_device(first_pos=...)`` contracts chains by);
     'none' leaves ``data`` zero.
     report_all: also return the census of every distinct kmer.
     """
-    if data_reduce not in ("label_first", "none"):
+    if data_reduce not in ("label_first", "min", "obs_min", "none"):
         raise ValueError(f"data_reduce {data_reduce!r} is not ported")
     kmers, exts, valid = extract_canonical(spec, bases, lengths, seq_exts, stranded)
     vf = valid.reshape(-1)
     kf = kmers.reshape(-1, spec.w)[vf]
     ef = exts.reshape(-1)[vf]
     lab = None
-    if data_reduce == "label_first":
+    if data_reduce == "obs_min":
+        lab = torch.nonzero(vf).flatten().to(torch.int32)
+    elif data_reduce != "none":
         lab = labels.to(torch.int32)[:, None].expand(valid.shape).reshape(-1)[vf]
     del kmers, exts, valid, vf
 
     perm = S.lex_argsort(kf)
     skmers = kf[perm]
     del kf
-    starts = torch.nonzero(S.run_starts(skmers)).flatten()
+    is_start = S.run_starts(skmers)
+    starts = torch.nonzero(is_start).flatten()
     n_obs = skmers.shape[0]
     ends = torch.cat([starts[1:], torch.full((1,), n_obs, dtype=starts.dtype, device=starts.device)])
     counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
@@ -122,7 +129,12 @@ def count_kmers(
     ukmers = skmers[starts]
     if lab is None:
         data = torch.zeros_like(counts)
+    elif data_reduce == "min":
+        run = torch.cumsum(is_start, 0) - 1
+        data = S.segment_min(lab[perm], run, starts.shape[0])
     else:
+        # the stable sort keeps each run's observations in slot order, so
+        # the run start holds the first label and the least slot index
         data = lab[perm[starts]]
     keep = counts >= min_obs
     return KmerTable(

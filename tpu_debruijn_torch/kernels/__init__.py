@@ -10,6 +10,18 @@ from tpu_debruijn_torch.kernels.extract_canonical import (
     extract_canonical_plain,
     extract_kmers,
 )
+from tpu_debruijn_torch.kernels.gather import (
+    gather_rows,
+    gather_rows_plain,
+    take_along_axis,
+    take_along_axis_plain,
+)
+from tpu_debruijn_torch.kernels.pointer_jump import (
+    rank_round,
+    rank_round_plain,
+    successor_walk,
+    successor_walk_plain,
+)
 
 __all__ = [
     "canonicalize",
@@ -17,4 +29,12 @@ __all__ = [
     "extract_canonical",
     "extract_canonical_plain",
     "extract_kmers",
+    "gather_rows",
+    "gather_rows_plain",
+    "rank_round",
+    "rank_round_plain",
+    "successor_walk",
+    "successor_walk_plain",
+    "take_along_axis",
+    "take_along_axis_plain",
 ]

@@ -66,6 +66,35 @@ def run_starts(sorted_limbs: torch.Tensor) -> torch.Tensor:
     return starts
 
 
+def copy_first(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Segmented copy-first: each element gets ``vals`` at the start of its
+    segment (``flags`` mark starts); elements before the first start get
+    ``vals[0]``, as the JAX package's ``_copy_first_packed`` gives them.
+
+    The running count of starts indexes the list of start positions: one
+    cumulative sum and two gathers (``torch.cummax`` over the start
+    positions gives the same, several times slower on the card).
+    """
+    zero = torch.zeros(1, dtype=torch.int64, device=vals.device)
+    starts = torch.cat([zero, torch.nonzero(flags).flatten()])
+    return vals[starts[torch.cumsum(flags, 0)]]
+
+
+def copy_last(vals: torch.Tensor, is_end: torch.Tensor) -> torch.Tensor:
+    """Segmented copy-last: each element gets ``vals`` at the end of its
+    segment (``is_end`` marks ends); :func:`copy_first` run backwards."""
+    return copy_first(vals.flip(0), is_end.flip(0)).flip(0)
+
+
+def segment_min(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Minimum of ``vals`` over each segment id in ``[0, n_seg)``; every
+    segment must hold an element.  Where the JAX package reads a suffix
+    segmented min at segment starts (``compress._min_suffix_packed``), this
+    gives the same values with one scatter."""
+    out = torch.zeros(n_seg, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce(0, seg, vals, "amin", include_self=False)
+
+
 def partition(mask: torch.Tensor, arrays):
     """Stable partition: rows where ``mask`` holds move to the front, in
     order, followed by the others in order.  Returns (count, arrays)."""
