@@ -1,34 +1,39 @@
 """Drive the PyTorch port (tpu_debruijn_torch) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --stages [--root DIR] [--seed N]
 
 Phases; any failure raises and the script exits non-zero:
 
 0. A CUDA device must be present; print its name and power limit.
 1. Build the CUDA kernels from ``tpu_debruijn_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, bit-exact;
-   kernel and plain times from CUDA events.  The two kmer kernels for K in
-   {4, 15, 16, 31, 32, 47, 48, 63, 64}, stranded both ways, at the main
-   path's shapes with ragged read lengths and non-zero read exts.  The
-   gather and pointer-jump kernels at the Pallas probes' shapes (2^18
+   kernel, plain and (where one PyTorch call computes the same function)
+   library times from CUDA events, and each kernel's bound: the bytes it
+   must move over the card's 3.35 TB/s.  The two kmer kernels for K in
+   {4, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64}, stranded both ways, at
+   the main path's shapes with ragged read lengths and non-zero read exts.
+   The gather and pointer-jump kernels at the Pallas probes' shapes (2^18
    entries, (2048, 128) tables, 18 hops over successors with about 1%
-   terminal), and gather_rows and rank_round also at the main path's
-   (2n, 4) doubling carry for the genome's 4,641,622 kmers; then the whole
-   ranking with the round kernel against the plain loop, on a list forest
-   and on an input with cycles.
+   terminal), and gather_rows, rank_round and rank_lists also at the main
+   path's (2n, 4) ranking carry for the genome's 4,641,622 kmers.  The whole
+   ranking (rank_lists, the ruling set) against the plain doubling loop on
+   that carry, a list forest and an input with cycles: exact where a path
+   ends, the cycle contract on cycles; timed against the rank_round loop.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
-   written to a FASTQ file.  Checks: the kmer kernels, gather_rows and
-   rank_round launched, the table lies on the card, every table kmer is in
-   exactly one unitig, every unitig is a substring of the genome or of its
-   reverse complement, and the GFA has one S line per node.
+   written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
+   rank_lists and rank_round launched and rank_lists never took its round
+   path, the table lies on the card, every table kmer is in exactly one
+   unitig, every unitig is a substring of the genome or of its reverse
+   complement, and the GFA has one S line per node.
 4. The read-ordered path on phase 3's reads, held in memory:
    filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
    to the plain linker's on the same table, unitigs equal to phase 3's,
-   rank_round launched; prints the interval count, the doubling rounds and
-   the compress seconds of both linkers.
+   the same kernels launched as in phase 3; prints the interval count, the
+   rank_round launches and the compress seconds of both linkers.
 5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
    checks as phase 3 but the substring one.
 6. The CUDA path against the CPU path on a small input: identical tables,
@@ -36,6 +41,13 @@ Phases; any failure raises and the script exits non-zero:
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``--stages`` runs none of that: it times the quick start's count and compress
+stages and both linkers on E. coli-length reads held in memory, with the
+card's busy time under torch.profiler, and the extraction kernel and the
+whole ranking at the main path's shapes, with the package found in
+``--root`` (default: beside this script), and prints one JSON line.  Run it
+on two checkouts in turns to compare them on one card.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ ECOLI_LEN = 4_641_652  # E. coli K-12 MG1655
 READ_LEN = 150
 COVERAGE = 30
 K = 31
-KS = [4, 15, 16, 31, 32, 47, 48, 63, 64]
+KS = [4, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 _LUT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -130,16 +143,27 @@ def time_pair(fn, plain):
     return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
 
 
-def kernel_row(name, source, replaces, fn, plain, err, shape) -> dict:
-    """Time a kernel against its plain version; its record for the JSON line."""
+def kernel_row(name, source, replaces, fn, plain, err, shape, nbytes: int, library=None) -> dict:
+    """Time a kernel against its plain version (and the one PyTorch call
+    that computes the same function, where there is one); its record for
+    the JSON line.  ``nbytes``: each input byte read once, each output byte
+    written once, which over the device memory rate is the bound."""
     ms, plain_ms, all4 = time_pair(fn, plain)
+    library_ms = None if library is None else min(time_ms(library), time_ms(library))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: {name} at {shape}: kernel {all4[0]:.4f} / {all4[1]:.4f} ms, "
-        f"plain {all4[2]:.4f} / {all4[3]:.4f} ms")
+        f"plain {all4[2]:.4f} / {all4[3]:.4f} ms, library {library_ms}, "
+        f"bound {bound_ms:.4f} ms ({nbytes} bytes, {bound_ms / ms:.1%} of it)")
     return {
         "name": name, "route": "cuda", "source": f"tpu_debruijn_torch/csrc/{source}",
         "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "shape": shape,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+        "library_ms": library_ms, "shape": shape,
     }
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_abs_diff(got, want, mask=None) -> int:
@@ -194,16 +218,34 @@ def phase_kernels(gen, n_reads: int, canon_rows: int, device) -> list:
     km = random_kmers(gen, spec, canon_rows, device)
     ex = torch.zeros(canon_rows, dtype=torch.int32, device=device)
     lengths = torch.full((n_reads,), READ_LEN, dtype=torch.int32, device=device)
+    canon_out = canonicalize(spec, km, ex)
+    extract_out = extract_canonical(spec, bases, lengths, seq_exts, False)
     rows = [
         kernel_row("canonical", "canonical.cu", "tpu_debruijn/kernels/canonical.py:57",
                    lambda: canonicalize(spec, km, ex), lambda: canonicalize_plain(spec, km, ex),
-                   err_c, f"({canon_rows}, {spec.w}) int64"),
+                   err_c, f"({canon_rows}, {spec.w}) int64", nbytes(km, ex, *canon_out)),
         kernel_row("extract_canonical", "extract_canonical.cu",
                    "tpu_debruijn/kernels/extract_canonical.py:66",
                    lambda: extract_canonical(spec, bases, lengths, seq_exts, False),
                    lambda: extract_canonical_plain(spec, bases, lengths, seq_exts, False),
-                   err_x, f"({n_reads}, {l}) uint8"),
+                   err_x, f"({n_reads}, {l}) uint8",
+                   nbytes(bases, lengths, seq_exts, *extract_out)),
     ]
+    del canon_out, extract_out
+    # the extraction's tile size, in turns around the wrapper's
+    ec = sys.modules["tpu_debruijn_torch.kernels.extract_canonical"]
+    chosen, tiles = ec.TILE_SLOTS, {}
+    for ec.TILE_SLOTS in (1024, 2048, 4096, 4096, 2048, 1024):
+        t = time_ms(lambda: extract_canonical(spec, bases, lengths, seq_exts, False))
+        tiles[ec.TILE_SLOTS] = min(t, tiles.get(ec.TILE_SLOTS, t))
+    ec.TILE_SLOTS = chosen
+    log(f"phase 2: extract_canonical ms by TILE_SLOTS (wrapper: {chosen}): " + json.dumps(tiles))
+    # what the card takes to write as many bytes, with nothing to compute
+    sink = torch.empty(nbytes(*extract_canonical(spec, bases, lengths, seq_exts, False)) // 8,
+                       dtype=torch.int64, device=device)
+    log(f"phase 2: writing the extraction's {8 * sink.numel()} output bytes with fill_: "
+        f"{min(time_ms(lambda: sink.fill_(1)) for _ in range(2)):.4f} ms")
+    del sink
     log(f"phase 2 shapes: extract (R={n_reads}, L={l}) uint8, canonical ({canon_rows}, {spec.w}) int64")
     return rows
 
@@ -225,11 +267,10 @@ def successor_forest(gen, m: int, mean_len: int, device, cyclic: bool = False) -
 
 def phase_pointer_kernels(gen, n_states: int, device) -> list:
     """The gather and pointer-jump kernels against their plain versions: at
-    the Pallas probes' shapes, and gather_rows and rank_round also at the
-    main path's (n_states, 4) carry; then the whole ranking."""
-    from tpu_debruijn_torch import compress as C
+    the Pallas probes' shapes, and gather_rows, rank_round and rank_lists
+    also at the main path's (n_states, 4) carry."""
     from tpu_debruijn_torch.kernels import (
-        gather_rows, gather_rows_plain, rank_round, rank_round_plain,
+        gather_rows, gather_rows_plain, rank_lists, rank_lists_plain, rank_round, rank_round_plain,
         successor_walk, successor_walk_plain, take_along_axis, take_along_axis_plain,
     )
 
@@ -247,7 +288,8 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     idx_rows, idx_lanes, idx_flat, idx_r = ri(r, (r, l)), ri(l, (r, l)), ri(r * l, (r, l)), ri(r, (r,))
     # probe_pallas_gather.py:102-104: about 1% terminal
     succ = torch.where(torch.rand(m, generator=gen, device=device) < 0.99, ri(m, (m,)), -1).to(torch.int32)
-    err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_round": 0}
+    err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_round": 0,
+           "rank_lists": 0}
     for what, family, fn, plain in (  # each probe's form: (probe, kernel, kernel call, plain call)
         ("P1/P2 (2^18,) int32", "gather_rows",
          lambda: gather_rows(tab, idx), lambda: gather_rows_plain(tab, idx)),
@@ -276,8 +318,9 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
         log(f"phase 2: {what}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
     # the main path's shape: the (2n, 4) int32 carry of chain linking on the
-    # E. coli table, in its first round (every pointer live)
-    s0 = successor_forest(gen, n_states, 1 << 16, device)
+    # E. coli table, two lists of n states as the genome's one unitig gives,
+    # in its first round (every pointer live)
+    s0 = successor_forest(gen, n_states, n_states // 2, device)
     x = torch.stack([
         s0, s0 >= 0, torch.randint(0, 1 << 30, (n_states,), generator=gen, device=device),
         torch.where(s0 < 0, torch.arange(n_states, device=device), -1),
@@ -285,38 +328,86 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     gidx = torch.randint(0, n_states, (n_states,), generator=gen, device=device)
     err["gather_rows"] = max(err["gather_rows"], exact("gather_rows main shape",
                                                        gather_rows(x, gidx), gather_rows_plain(x, gidx)))
+    check(torch.equal(torch.index_select(x, 0, gidx), gather_rows(x, gidx)), "index_select != gather_rows")
+    idx_rows64 = idx_rows.to(torch.int64)
+    check(torch.equal(torch.gather(tab2, 0, idx_rows64), take_along_axis(tab2, idx_rows, 0)),
+          "torch.gather != take_along_axis")
     spare = torch.empty_like(x)
     err["rank_round"] = exact("rank_round main shape", rank_round(x, out=spare), rank_round_plain(x))
-
-    # the whole ranking, round kernel against the plain loop on the CPU
-    for cyclic in (False, True):
-        s = successor_forest(gen, 1 << 20, 300, device, cyclic)
-        mn = torch.randint(0, 1 << 30, s.shape, generator=gen, device=device)
-        before = rank_round.launches
-        got = C._rank_all(s, mn)
-        rounds = rank_round.launches - before
-        want = C._rank_all(s.cpu(), mn.cpu())
-        err["rank_round"] = max(err["rank_round"], exact(
-            f"_rank_all cyclic={cyclic}", tuple(t.cpu() for t in got), want))
-        log(f"phase 2: _rank_all over 2^20 states (cyclic={cyclic}) equal to the plain loop, {rounds} rounds")
+    err["rank_lists"] = phase_ranking(gen, x, device)
 
     shape_main = f"({n_states}, 4) int32"
+    carry_bytes = 2 * nbytes(x)
     rows = [
         kernel_row("gather_rows", "gather.cu", "scripts/probe_pallas_gather.py:80",
                    lambda: gather_rows(x, gidx), lambda: gather_rows_plain(x, gidx),
-                   err["gather_rows"], shape_main),
+                   err["gather_rows"], shape_main, nbytes(x, gidx, x),
+                   library=lambda: torch.index_select(x, 0, gidx)),
         kernel_row("take_along_axis", "gather.cu", "scripts/probe_pallas_gather2.py:60",
                    lambda: take_along_axis(tab2, idx_rows, 0),
                    lambda: take_along_axis_plain(tab2, idx_rows, 0),
-                   err["take_along_axis"], f"({r}, {l}) int32, axis 0"),
+                   err["take_along_axis"], f"({r}, {l}) int32, axis 0", nbytes(tab2, idx_rows, tab2),
+                   library=lambda: torch.gather(tab2, 0, idx_rows64)),
         kernel_row("successor_walk", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
                    lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
-                   err["successor_walk"], f"({m},) int32, 18 hops"),
+                   err["successor_walk"], f"({m},) int32, 18 hops", 2 * nbytes(succ)),
         kernel_row("rank_round", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
                    lambda: rank_round(x, out=spare), lambda: rank_round_plain(x),
-                   err["rank_round"], shape_main),
+                   err["rank_round"], shape_main, carry_bytes),
+        kernel_row("rank_lists", "list_rank.cu", "tpu_debruijn/compress.py:277",
+                   lambda: rank_lists(x), lambda: rank_lists_plain(x),
+                   err["rank_lists"], shape_main + ", two lists", carry_bytes),
     ]
     return rows
+
+
+def phase_ranking(gen, x, device) -> int:
+    """The whole ranking: the ruling-set kernels against the plain doubling
+    loop, on the main carry, a list forest and an input with cycles.  Exact
+    on every state whose path ends; on cycle states succ >= 0 and the
+    cycle's minimum, all that the callers read there
+    (tpu_debruijn/compress.py:243-245).  Lane for lane against the
+    kernels' step-for-step transcription on the CPU at 2^20 states.
+    Times the ruling set (and its ruler spacings) against the loop of
+    rank_round launches it replaced, and the plain loop, on the main carry."""
+    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+
+    def contract(what, got, want):
+        res = want[:, 0] < 0
+        check(torch.equal(got[res], want[res]), f"{what}: resolved states differ")
+        check(bool((got[~res, 0] >= 0).all()), f"{what}: a cycle state resolved")
+        check(torch.equal(got[~res, 2], want[~res, 2]), f"{what}: a cycle minimum differs")
+        return int((~res).sum())
+
+    round_path = PJ.rank_lists.round_path
+    rounds_loop = lambda: PJ._doubling(x, PJ.rank_round, PJ._full_rounds(x.shape[0]), True)
+    want = PJ.rank_lists_plain(x)
+    contract("rank_lists main carry", PJ.rank_lists(x), want)
+    check(torch.equal(rounds_loop(), want), "the rank_round loop != the plain loop")
+    before = PJ.rank_round.launches
+    rounds_loop()
+    log(f"phase 2: ranking of the main carry bit-exact against the plain loop; "
+        f"the rank_round loop takes {PJ.rank_round.launches - before} rounds")
+    for cyclic in (False, True):
+        s = successor_forest(gen, 1 << 20, 300, device, cyclic)
+        xs = torch.stack([s, s >= 0, torch.randint(0, 1 << 30, s.shape, generator=gen, device=device),
+                          torch.where(s < 0, torch.arange(s.shape[0], device=device), -1)],
+                         dim=1).to(torch.int32)
+        got = PJ.rank_lists(xs).cpu()
+        n_cyc = contract(f"rank_lists cyclic={cyclic}", got, PJ.rank_lists_plain(xs).cpu())
+        check(xs.device.type != "cuda" or torch.equal(got, PJ.rank_lists_rulers_plain(xs.cpu())),
+              f"rank_lists cyclic={cyclic}: != its transcription")
+        log(f"phase 2: rank_lists over 2^20 states (cyclic={cyclic}, {n_cyc} cycle states) "
+            "meets the contract and equals its transcription lane for lane")
+    check(PJ.rank_lists.round_path == round_path, "rank_lists took the round path")
+    ms = {f"rank_lists s={sp}": min(time_ms(lambda: PJ.rank_lists(x, sp)) for _ in range(2))
+          for sp in (16, 32, 64)}
+    ms["rank_round loop"] = min(time_ms(rounds_loop) for _ in range(2))
+    ms["plain loop"] = time_ms(lambda: PJ.rank_lists_plain(x), iters=2)
+    log("phase 2: whole ranking of the main carry (ms): " + json.dumps(ms))
+    prof = profile_device_ms(lambda: PJ.rank_lists(x), top=8)
+    log("phase 2: rank_lists on the main carry under the profiler: " + json.dumps(prof))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +534,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     rank_round = counters["rank_round"]
     for fn in counters.values():
         fn.launches = 0
+    counters["rank_lists"].round_path = 0
     torch.cuda.reset_peak_memory_stats()
     t = [time.perf_counter()]
     table = T.filter_kmers([(r, 0, 0) for r in reads], k=K, stranded=False, min_obs=2,
@@ -457,6 +549,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     nodes = C.assemble_chains(table.spec, table.kmers, chains, u_exts, contrib, table.counts)
     t.append(time.perf_counter())
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
     peak = torch.cuda.max_memory_allocated()
     rounds_ordered = launches["rank_round"]
 
@@ -517,9 +610,75 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     log(f"phase 6: CUDA == CPU on {len(tc['kmers'])} kmers, {len(nc)} unitigs, {len(gc)} GFA bytes")
 
 
+def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
+    """``--stages``: the count and compress stages and both linkers, each
+    ``reps`` times (host clock, ending in a synchronize), the card's busy
+    time of one call of each, the extraction kernel and the whole ranking at
+    the main path's shapes (CUDA events).  Uses only entry points that every
+    version of the port has."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch.kernels import _build, extract_canonical
+    from tpu_debruijn_torch.kmer import KmerSpec
+
+    _build.library()
+    rng = np.random.default_rng(seed)
+    reads = [(r, 0, 0) for r in sample_reads(rng, make_genome(rng, ECOLI_LEN, False), COVERAGE, READ_LEN)]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    count = lambda **kw: T.filter_kmers(reads, k=K, stranded=False, min_obs=2, device=device, **kw)
+    out = {"count_s": [], "compress_s": [], "linker_plain_s": [], "linker_ordered_s": []}
+    for _ in range(reps):
+        dt, table = timed(count)
+        out["count_s"].append(dt)
+        out["compress_s"].append(timed(lambda: T.compress_kmers(table, device=device))[0])
+    ordered = count(data_reduce="obs_min")
+    linkers = {
+        "linker_plain_s": lambda: C.compress_kmer_table_device(
+            ordered.spec, False, ordered.kmers, ordered.exts),
+        "linker_ordered_s": lambda: C.compress_kmer_table_device(
+            ordered.spec, False, ordered.kmers, ordered.exts, first_pos=ordered.data),
+    }
+    for _ in range(reps):
+        for name, fn in linkers.items():
+            out[name].append(timed(fn)[0])
+    out["device_ms"] = {
+        "count": profile_device_ms(count),
+        "compress": profile_device_ms(lambda: T.compress_kmers(table, device=device)),
+        "linker_ordered": profile_device_ms(linkers["linker_ordered_s"]),
+    }
+    del table, ordered
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n_reads = len(reads)
+    l = -(-READ_LEN // 16) * 16
+    bases = torch.randint(0, 4, (n_reads, l), generator=gen, dtype=torch.uint8, device=device)
+    lengths = torch.full((n_reads,), READ_LEN, dtype=torch.int32, device=device)
+    seq_exts = torch.zeros(n_reads, dtype=torch.int32, device=device)
+    spec = KmerSpec(K)
+    out["extract_canonical_ms"] = min(
+        time_ms(lambda: extract_canonical(spec, bases, lengths, seq_exts, False)) for _ in range(2))
+    del bases
+    n_states = 2 * (ECOLI_LEN - K + 1)
+    succ = successor_forest(gen, n_states, n_states // 2, device)
+    mnmo = torch.randint(0, 1 << 30, (n_states,), generator=gen, device=device)
+    out["rank_all_ms"] = min(time_ms(lambda: C._rank_all(succ, mnmo)) for _ in range(2))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random input")
+    ap.add_argument("--stages", action="store_true",
+                    help="only time the stages, the extraction kernel and the ranking")
+    ap.add_argument("--root", default=None,
+                    help="with --stages: the checkout whose tpu_debruijn_torch is timed")
     args = ap.parse_args(argv)
 
     # phase 0
@@ -533,6 +692,12 @@ def main(argv=None) -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    if args.stages:
+        if args.root:
+            sys.path.insert(0, os.path.abspath(args.root))
+        out = stage_times(args.seed)
+        log("stages " + json.dumps({"root": args.root or ".", "device": smi, **out}))
+        return 0
 
     from tpu_debruijn_torch import kernels as KN
     from tpu_debruijn_torch.io import native
@@ -566,16 +731,19 @@ def main(argv=None) -> int:
         "canonical": KN.canonicalize, "extract_canonical": KN.extract_canonical,
         "gather_rows": KN.gather_rows, "take_along_axis": KN.take_along_axis,
         "successor_walk": KN.successor_walk, "rank_round": KN.rank_round,
+        "rank_lists": KN.rank_lists,
     }
-    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_round")
+    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_round", "rank_lists")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3: the main path
         genome = make_genome(rng, ECOLI_LEN, repeat_rich=False)
         for fn in counters.values():
             fn.launches = 0
+        KN.rank_lists.round_path = 0
         main, reads, nodes_main = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
         by_path["quick_start"] = {name: fn.launches for name, fn in counters.items()}
+        by_path["quick_start"]["rank_lists.round_path"] = KN.rank_lists.round_path
         log("phase 3 (main path): " + json.dumps(main))
 
         # phase 4: the read-ordered path on the same reads
@@ -586,6 +754,7 @@ def main(argv=None) -> int:
         for path, launches in by_path.items():
             for name in on_path:
                 check(launches[name] > 0, f"the {path} path never launched kernel {name}")
+            check(launches["rank_lists.round_path"] == 0, f"the {path} path ranked by the round path")
         for r in rows:
             r["launches_by_path"] = {path: by_path[path][r["name"]] for path in by_path}
             r["launches"] = sum(r["launches_by_path"].values())

@@ -18,6 +18,8 @@ from tpu_debruijn_torch.kernels import (
     extract_canonical_plain,
     gather_rows,
     gather_rows_plain,
+    rank_lists,
+    rank_lists_plain,
     rank_round,
     rank_round_plain,
     successor_walk,
@@ -26,7 +28,7 @@ from tpu_debruijn_torch.kernels import (
     take_along_axis_plain,
 )
 
-KS = [4, 15, 16, 31, 32, 47, 48, 63, 64]
+KS = [4, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64]
 
 
 @pytest.fixture
@@ -51,21 +53,24 @@ def test_canonical_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(257, 160), (33, 97), (5, 3001)])
 @pytest.mark.parametrize("stranded", [False, True])
 @pytest.mark.parametrize("k", KS)
-def test_extract_canonical_kernel_matches_plain(cuda, k, stranded):
+def test_extract_canonical_kernel_matches_plain(cuda, k, stranded, shape):
+    """Rows of 160 bases (16-byte loads), of 97 (byte loads) and of 3001
+    (cut into pieces); every slot, invalid ones too, as the plain version
+    writes them."""
     rng = np.random.default_rng(k)
     spec = TK.KmerSpec(k)
-    r, l = 257, 160
+    r, l = shape
     bases = torch.from_numpy(rng.integers(0, 4, (r, l)).astype(np.uint8)).to(cuda)
     lengths = torch.from_numpy(rng.integers(k, l + 1, r).astype(np.int32)).to(cuda)
     seq_exts = torch.from_numpy(rng.integers(0, 256, r).astype(np.int32)).to(cuda)
-    gk, ge, gv = extract_canonical(spec, bases, lengths, seq_exts, stranded)
-    pk, pe, pv = extract_canonical_plain(spec, bases, lengths, seq_exts, stranded)
+    got = extract_canonical(spec, bases, lengths, seq_exts, stranded)
+    want = extract_canonical_plain(spec, bases, lengths, seq_exts, stranded)
     torch.cuda.synchronize()
-    assert torch.equal(gv, pv)
-    assert torch.equal(gk[pv], pk[pv])
-    assert torch.equal(ge[pv], pe[pv])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _forest(rng, m, cyclic):
@@ -126,37 +131,80 @@ def test_successor_walk_kernel_matches_plain(cuda, kind):
     assert torch.equal(got, successor_walk_plain(succ, 18))
 
 
+def _same_ranking(got, want):
+    """Exact where the path ends; on cycles succ >= 0 and the same minimum,
+    all the callers read there (tpu_debruijn/compress.py:243-245)."""
+    res = want[:, 0] < 0
+    assert torch.equal(got[res], want[res])
+    assert bool((got[~res, 0] >= 0).all())
+    assert torch.equal(got[~res, 2], want[~res, 2])
+
+
+def _carry(rng, succ):
+    m = len(succ)
+    cols = [succ, succ >= 0, rng.integers(0, 1 << 30, m), np.where(succ < 0, np.arange(m), -1)]
+    return torch.from_numpy(np.stack(cols, 1)).to(torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cyclic", [False, True])
 def test_rank_round_kernel_matches_plain(cuda, cyclic):
-    """One round, then the whole ranking, kernel against plain; cycle
-    states run the full round count."""
+    """One round, then the whole ranking on the card against the plain
+    doubling loop: exact on resolved states, the cycle contract on cycles."""
     from tpu_debruijn_torch import compress as TC
 
     rng = np.random.default_rng(3)
     m = 200_003
     succ = _forest(rng, m, cyclic)
-    mnmo = rng.integers(0, 1 << 30, m)
-    x = torch.from_numpy(np.stack([succ, succ >= 0, mnmo, np.where(succ < 0, np.arange(m), -1)], 1))
-    x = x.to(torch.int32).to(cuda)
+    x = _carry(rng, succ).to(cuda)
     got, flag = rank_round(x)
     want, want_flag = rank_round_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(flag, want_flag)
-    args = [torch.from_numpy(a) for a in (succ, mnmo)]
-    before = rank_round.launches
-    ranked = TC._rank_all(*[a.to(cuda) for a in args])
-    rounds = rank_round.launches - before
-    plain = TC._rank_all(*args)
-    for g, w in zip(ranked, plain):
-        assert torch.equal(g.cpu(), w)
-    assert (rounds == 18) == cyclic  # ceil(log2(m + 1)) = 18 rounds with cycles
+    mnmo = torch.from_numpy(rng.integers(0, 1 << 30, m))
+    before = rank_lists.launches
+    ranked = TC._rank_all(torch.from_numpy(succ).to(cuda), mnmo.to(cuda))
+    assert rank_lists.launches == before + 1
+    plain = TC._rank_all(torch.from_numpy(succ), mnmo)
+    _same_ranking(torch.stack([g.cpu() for g in ranked], 1), torch.stack(plain, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spacing", [2, 32])
+@pytest.mark.parametrize("kind", ["forest", "chain", "cycles", "in_tree"])
+def test_rank_lists_kernels_match_plain(cuda, kind, spacing):
+    """The ruling-set kernels against the doubling loop and, lane for lane,
+    against their step-for-step transcription; an in-tree takes the round
+    path and comes out exact."""
+    from tpu_debruijn_torch.kernels.pointer_jump import rank_lists_rulers_plain
+
+    rng = np.random.default_rng(5)
+    m = 100_000
+    if kind == "chain":
+        order = rng.permutation(m)
+        succ = np.full(m, -1, np.int64)
+        succ[order[:-1]] = order[1:]
+    else:
+        succ = _forest(rng, m, kind == "cycles")
+    if kind == "in_tree":
+        live = np.nonzero(succ >= 0)[0]
+        succ[live[1]] = succ[live[0]]
+    x = _carry(rng, succ)
+    before = rank_lists.round_path
+    got = rank_lists(x.to(cuda), spacing).cpu()
+    assert rank_lists.round_path == before + (kind == "in_tree")
+    want = rank_lists_plain(x)
+    if kind == "in_tree":
+        assert torch.equal(got, want)
+    else:
+        _same_ranking(got, want)
+        assert torch.equal(got, rank_lists_rulers_plain(x, spacing))
 
 
 @pytest.mark.cuda
 def test_ordered_path_cuda_matches_cpu(cuda):
     """obs_min table -> ordered compress: the same chains on the card and
-    on the CPU, through the round kernel."""
+    on the CPU, through the ranking kernels."""
     from tpu_debruijn_torch import compress as TC
     from tpu_debruijn_torch import filter as TF
 
@@ -167,12 +215,12 @@ def test_ordered_path_cuda_matches_cpu(cuda):
     out = {}
     for dev in ("cpu", cuda):
         table = TF.filter_kmers(reads, 31, min_obs=2, data_reduce="obs_min", device=dev)
-        before = rank_round.launches
+        before = rank_lists.launches
         chains, _, _, overflow = TC.compress_kmer_table_device(
             table.spec, False, table.kmers, table.exts, first_pos=table.data
         )
         assert not overflow
-        assert (rank_round.launches > before) == (dev == cuda)
+        assert (rank_lists.launches > before) == (dev == cuda)
         out[str(dev)] = [t.cpu() for t in (table.data, chains.uid, chains.pos, chains.flip, chains.length)]
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g, w)

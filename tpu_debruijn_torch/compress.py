@@ -1,4 +1,4 @@
-"""Path compression: kmer table -> unitigs, by pointer doubling.
+"""Path compression: kmer table -> unitigs, by list ranking.
 
 Counterpart of ``tpu_debruijn/compress.py`` (rust-debruijn's
 CompressFromHash, compression.rs:355-615), with the same three steps:
@@ -10,10 +10,10 @@ CompressFromHash, compression.rs:355-615), with the same three steps:
    candidate targets are canonicalized by the canonical kernel
    (``kernels/canonical.py``) and found by one search of the sorted table.
 2. **Chain linking** (:func:`link_chains`): a successor over the 2n
-   (kmer, orientation) states is pointer-doubled to give every kmer its
+   (kmer, orientation) states is list-ranked to give every kmer its
    unitig, position and orientation.  Cycles are cut at the minimum kmer,
    where the reference's seed loop would break them, and re-ranked.
-   Each doubling round is the ``rank_round`` kernel on CUDA
+   On CUDA the ranking is the ruling-set kernels of ``rank_lists``
    (``kernels/pointer_jump.py``).  :func:`link_chains_ordered` gives the
    same result by ranking only a contracted graph of read-adjacent
    intervals, given each kmer's first-occurrence index.
@@ -31,8 +31,6 @@ labels.
 from __future__ import annotations
 
 import dataclasses
-import math
-
 import numpy as np
 import torch
 
@@ -41,7 +39,7 @@ from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize
 from tpu_debruijn_torch.kernels.gather import gather_rows
-from tpu_debruijn_torch.kernels.pointer_jump import rank_round
+from tpu_debruijn_torch.kernels.pointer_jump import rank_lists
 from tpu_debruijn_torch.kmer import KmerSpec
 
 LEFT, RIGHT = E.LEFT, E.RIGHT
@@ -152,19 +150,19 @@ def _succ_states(partner_l, partner_r, in_l, in_r):
 
 
 def _rank_all(succ: torch.Tensor, mnmo: torch.Tensor, dist0=None, end0=None):
-    """Pointer-doubling list ranking: (succ_final, dist_to_end, mnmo_min,
-    end_state) per state, int64.
+    """List ranking: (succ_final, dist_to_end, mnmo_min, end_state) per
+    state, int64.
 
     ``dist0``/``end0`` seed each state's edge weight and terminal id (the
     contracted ranking of :func:`link_chains_ordered` seeds interval lengths
     and exit states); by default a live edge weighs 1 and a terminal state
     ends at itself.
 
-    The carry is one (m, 4) int32 matrix and each round one
-    :func:`rank_round` (the kernel on CUDA), double-buffered: at most
-    ceil(log2(m+1)) rounds, stopping once the round's flag says every
-    pointer resolved.  Cycle states never resolve: their dist/end are
-    garbage and the caller re-ranks them.
+    The carry is one (m, 4) int32 matrix ranked by :func:`rank_lists`: on
+    CUDA a ruling set (``csrc/list_rank.cu``), on the CPU pointer doubling.
+    Both give doubling's result on every state whose path ends.  Cycle
+    states keep ``succ >= 0`` and get the cycle's minimum mnmo; their
+    dist/end are garbage and the caller re-ranks them.
     """
     m = succ.shape[0]
     if m >= 1 << 31:
@@ -174,13 +172,7 @@ def _rank_all(succ: torch.Tensor, mnmo: torch.Tensor, dist0=None, end0=None):
     if end0 is None:
         end0 = torch.where(succ == -1, torch.arange(m, device=succ.device), -1)
     x = torch.stack([t.to(torch.int32) for t in (succ, dist0, mnmo, end0)], dim=1)
-    spare = torch.empty_like(x)
-    for _ in range(max(1, math.ceil(math.log2(m + 1)))):
-        nxt, unresolved = rank_round(x, out=spare)
-        x, spare = nxt, x
-        if not bool(unresolved):
-            break
-    x = x.to(torch.int64)
+    x = rank_lists(x).to(torch.int64)
     return x[:, 0], x[:, 1], x[:, 2], x[:, 3]
 
 
@@ -310,7 +302,7 @@ def discovery_intervals(partner_l, partner_r, first_pos):
 
 def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
     """Chain linking by read-adjacency contraction: :func:`link_chains`'
-    result, with pointer doubling on a graph of intervals.
+    result, with list ranking on a graph of intervals.
 
     ``first_pos`` is each item's first-occurrence observation index
     (``filter_kmers(data_reduce="obs_min")``).  In that order most chain

@@ -20,6 +20,7 @@
 // bound at the sizes of chain linking (9.3M rows: 148 MB per buffer).
 
 #include <cstdint>
+#include <utility>
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,5 +82,24 @@ extern "C" int tdb_rank_round(const void* x, int64_t m, void* out,
   const unsigned blocks = (unsigned)((m + threads - 1) / threads);
   rank_round_kernel<<<blocks, threads, 0, s>>>((const int4*)x, m, (int4*)out,
                                                (int32_t*)unresolved);
+  return (int)cudaGetLastError();
+}
+
+// `rounds` rounds from x, alternating between x and spare (both (m, 4)
+// int32, 16-byte aligned, distinct; both overwritten), with no flag read in
+// between; the result is in spare for an odd count, else in x.  unresolved:
+// one int32 scratch word the rounds write to.
+extern "C" int tdb_rank_rounds(void* x, void* spare, int64_t m, int rounds,
+                               void* unresolved, void* stream) {
+  if (m == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((m + threads - 1) / threads);
+  int4* a = (int4*)x;
+  int4* b = (int4*)spare;
+  for (int t = 0; t < rounds; ++t) {
+    rank_round_kernel<<<blocks, threads, 0, s>>>(a, m, b, (int32_t*)unresolved);
+    std::swap(a, b);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@ from tpu_debruijn_torch.kernels.canonical import canonicalize, canonicalize_plai
 from tpu_debruijn_torch.kernels.extract_canonical import (
     extract_canonical,
     extract_canonical_plain,
+    extract_canonical_tiled_plain,
     extract_kmers,
 )
 from tpu_debruijn_torch.kernels.gather import (
@@ -17,8 +18,12 @@ from tpu_debruijn_torch.kernels.gather import (
     take_along_axis_plain,
 )
 from tpu_debruijn_torch.kernels.pointer_jump import (
+    rank_lists,
+    rank_lists_plain,
+    rank_lists_rulers_plain,
     rank_round,
     rank_round_plain,
+    rank_rounds,
     successor_walk,
     successor_walk_plain,
 )
@@ -28,11 +33,16 @@ __all__ = [
     "canonicalize_plain",
     "extract_canonical",
     "extract_canonical_plain",
+    "extract_canonical_tiled_plain",
     "extract_kmers",
     "gather_rows",
     "gather_rows_plain",
+    "rank_lists",
+    "rank_lists_plain",
+    "rank_lists_rulers_plain",
     "rank_round",
     "rank_round_plain",
+    "rank_rounds",
     "successor_walk",
     "successor_walk_plain",
     "take_along_axis",

@@ -8,10 +8,11 @@ port's counting on CUDA.
 On the H100 the kernel is bound by device memory on the write side: each
 (read, position) slot reads one new base byte and writes 8W + 5 bytes.  The
 bases go in as uint8, a quarter of the JAX kernel's int32 input, and each
-output byte is written once; the forward and rc limbs are shift-accumulated
-from the window (the rc one over the complemented window read backwards),
-so no reversal ladder runs, and the overlapping windows of neighbouring
-threads are served from L1.
+output byte is written once.  A block packs a tile of rows into 2-bit words
+in shared memory, forward and reverse-complement, and each slot's limbs are
+funnel shifts of two words: O(W) work per slot whatever K is.
+:func:`extract_canonical_tiled_plain` transcribes that algorithm in plain
+PyTorch.
 
 :func:`extract_canonical` launches the kernel for a CUDA tensor and runs
 :func:`extract_canonical_plain` (:func:`extract_kmers` followed by the
@@ -25,13 +26,21 @@ import ctypes
 
 import torch
 
+from tpu_debruijn_torch import exts as E
 from tpu_debruijn_torch.kernels import _build
 from tpu_debruijn_torch.kernels.canonical import canonicalize_plain
-from tpu_debruijn_torch.kmer import KmerSpec
+from tpu_debruijn_torch.kmer import M32, KmerSpec, reverse_by_twos_u32
+
+# slots per piece at most: longer rows are cut into pieces (the kernel's
+# shared-memory tile holds the packed words of whole pieces)
+SEG_MAX = 2048
+# slots per tile of a block, about (whole pieces, at most 64), chosen on the
+# H100: PERF.md
+TILE_SLOTS = 2048
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
@@ -88,6 +97,94 @@ def extract_canonical_plain(spec: KmerSpec, bases, lengths, seq_exts, stranded: 
     return ck.reshape(r, lk, spec.w), ce.reshape(r, lk), valid
 
 
+def tile_layout(l: int, k: int, seg_max: int = SEG_MAX):
+    """The kernel's cut of a row: (Lk, NW words of 16 bases, SEG slots per
+    piece, pieces per row, words kept per piece and strand)."""
+    lk = l - k + 1
+    seg = min(lk, seg_max)
+    return lk, -(-l // 16), seg, -(-lk // seg), ((seg + k) >> 4) + 3
+
+
+def extract_canonical_tiled_plain(spec: KmerSpec, bases, lengths, seq_exts, stranded: bool,
+                                  seg_max: int = SEG_MAX):
+    """The tile algorithm of ``csrc/extract_canonical.cu``, step for step in
+    plain PyTorch (all pieces at once): :func:`extract_canonical_plain`'s
+    result from packed words and funnel shifts.
+
+    Each row is cut into pieces of at most ``seg_max`` slots.  A piece keeps
+    the 2-bit words (16 bases, first base in the top bits) of the chunks
+    ``ca..cb`` its windows and neighbours touch, and for the rc strand the
+    complemented, reversed words of the row padded to 16 NW bases, then a
+    zero word.  A slot's limbs are funnel shifts of two words each.
+    """
+    k, w = spec.k, spec.w
+    r, l = bases.shape
+    if l < k:
+        raise ValueError(f"padded read length {l} < K={k}")
+    lk, nw, seg, nseg, wst = tile_layout(l, k, seg_max)
+    dev = bases.device
+    # chunk words of every row; bytes past L read 0
+    b = torch.zeros((r, nw * 16), dtype=torch.int64, device=dev)
+    b[:, :l] = bases.to(torch.int64) & 3
+    f = (b.reshape(r, nw, 16) << (30 - 2 * torch.arange(16, device=dev))).sum(-1)
+    rcw = ~reverse_by_twos_u32(f) & M32  # rc word nw - 1 - c of chunk c
+    # pieces and their local words (one zero pad word after the last)
+    pc = torch.arange(r * nseg, device=dev)
+    row = pc // nseg
+    s0 = (pc % nseg) * seg
+    s1 = (s0 + seg).clamp(max=lk)
+    ca = ((s0 - 1) >> 4).clamp(min=0)
+    cb = ((s1 - 1 + k) >> 4).clamp(max=nw - 1)
+    cl = torch.arange(wst, device=dev)
+    c = ca[:, None] + cl
+    fw = torch.where(c <= cb[:, None], f[row[:, None], c.clamp(max=nw - 1)], 0)
+    c = cb[:, None] - cl
+    rw = torch.where(c >= ca[:, None], rcw[row[:, None], c.clamp(min=0)], 0)
+
+    sl = s0[:, None] + torch.arange(seg, device=dev)
+    live = sl < s1[:, None]
+    sl = torch.where(live, sl, s0[:, None])
+
+    def funnel(words, i, bit):
+        hi = torch.gather(words, 1, i)
+        lo = torch.gather(words, 1, i + 1)
+        return ((hi << bit) | (lo >> (32 - bit))) & M32
+
+    nb_low = k - 16 * (w - 1)
+    fwd, rev = [], []
+    for j in range(w):
+        c0, nb = (0, nb_low) if j == 0 else (nb_low + 16 * (j - 1), 16)
+        p = sl + c0
+        fwd.append(funnel(fw, (p >> 4) - ca[:, None], 2 * (p & 15)) >> (32 - 2 * nb))
+        q = 16 * nw - k - sl + c0
+        rev.append(funnel(rw, (q >> 4) - (nw - 1 - cb[:, None]), 2 * (q & 15)) >> (32 - 2 * nb))
+    fwd, rev = torch.stack(fwd, -1), torch.stack(rev, -1)
+    flip = torch.zeros(sl.shape, dtype=torch.bool, device=dev)
+    if not stranded:
+        lt = torch.zeros_like(flip)
+        eq = torch.ones_like(flip)
+        for j in range(w):
+            lt = lt | (eq & (fwd[..., j] < rev[..., j]))
+            eq = eq & (fwd[..., j] == rev[..., j])
+        flip = ~lt
+    kmers = torch.where(flip[..., None], rev, fwd)
+
+    def base(p):  # the base at row position p, from the forward words
+        word = torch.gather(fw, 1, ((p >> 4) - ca[:, None]).clamp(min=0))
+        return (word >> (30 - 2 * (p & 15))) & 3
+
+    se = seq_exts.to(torch.int64)[row][:, None]
+    lens = lengths.to(torch.int64)[row][:, None]
+    left = torch.where(sl == 0, se & 0x0F, 1 << base(sl - 1))
+    rb = torch.where(sl + k < l, base((sl + k).clamp(max=16 * nw - 1)), 0)
+    right = torch.where(sl == lens - k, (se >> 4) & 0x0F, 1 << rb)
+    ex = (left & 0x0F) | ((right & 0x0F) << 4)
+    ex = torch.where(flip, E.rc(ex), ex).to(torch.int32)
+    valid = sl <= lens - k
+    return (kmers[live].reshape(r, lk, w), ex[live].reshape(r, lk),
+            valid[live].reshape(r, lk))
+
+
 def extract_canonical(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
                       seq_exts: torch.Tensor, stranded: bool):
     """(R, L) uint8 codes -> (kmers (R, Lk, W) int64, exts (R, Lk) int32,
@@ -117,7 +214,7 @@ def extract_canonical(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor
     fn = _build.library().function("tdb_extract_canonical", _ARGTYPES)
     _build.check("tdb_extract_canonical", fn(
         bases.data_ptr(), lengths.data_ptr(), seq_exts.data_ptr(), r, l, k,
-        int(stranded), kmers.data_ptr(), exts.data_ptr(), valid.data_ptr(),
+        int(stranded), SEG_MAX, TILE_SLOTS, kmers.data_ptr(), exts.data_ptr(), valid.data_ptr(),
         _build.stream_ptr(bases.device),
     ))
     extract_canonical.launches += 1
