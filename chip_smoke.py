@@ -15,25 +15,34 @@ Phases; any failure raises and the script exits non-zero:
    the main path's shapes with ragged read lengths and non-zero read exts.
    The gather and pointer-jump kernels at the Pallas probes' shapes (2^18
    entries, (2048, 128) tables, 18 hops over successors with about 1%
-   terminal), and gather_rows, rank_round and rank_lists also at the main
-   path's (2n, 4) ranking carry for the genome's 4,641,622 kmers.  The whole
-   ranking (rank_lists, the ruling set) against the plain doubling loop on
-   that carry, a list forest and an input with cycles: exact where a path
-   ends, the cycle contract on cycles; timed against the rank_round loop.
+   terminal), each with the one PyTorch call that computes the same
+   function where there is one; the host time per call of take_along_axis
+   and torch.gather.  gather_rows also at the main path's shapes: the (2n,
+   4) ranking carry for the genome's 4,641,622 kmers and the count stage's
+   (111.4M, 4) observation rows by a random permutation and by a sorted
+   index, each beside its bytes-once bound and the random-gather floor (a
+   32-byte sector per row), and its rows per thread swept.  rank_round at
+   the ruler level of that carry (the shape rank_lists launches it at) and
+   on the whole carry.  The whole ranking (rank_lists, the ruling set)
+   against the plain doubling loop on that carry, a list forest and an
+   input with cycles: exact where a path ends, the cycle contract on
+   cycles; timed against the rank_round loop.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
-   rank_lists and rank_round launched and rank_lists never took its round
-   path, the table lies on the card, every table kmer is in exactly one
-   unitig, every unitig is a substring of the genome or of its reverse
-   complement, and the GFA has one S line per node.
+   rank_lists and rank_round launched, gather_rows in both the count and
+   the compress stage, and rank_lists never took its round path, the table
+   lies on the card, every table kmer is in exactly one unitig, every
+   unitig is a substring of the genome or of its reverse complement, and
+   the GFA has one S line per node.
 4. The read-ordered path on phase 3's reads, held in memory:
    filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
    to the plain linker's on the same table, unitigs equal to phase 3's,
-   the same kernels launched as in phase 3; prints the interval count, the
-   rank_round launches and the compress seconds of both linkers.
+   the same kernels launched as in phase 3, gather_rows launched inside
+   resolve_edges; prints the interval count, the rank_round launches and
+   the compress seconds of both linkers.
 5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
    checks as phase 3 but the substring one.
 6. The CUDA path against the CPU path on a small input: identical tables,
@@ -44,8 +53,9 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``--stages`` runs none of that: it times the quick start's count and compress
 stages and both linkers on E. coli-length reads held in memory, with the
-card's busy time under torch.profiler, and the extraction kernel and the
-whole ranking at the main path's shapes, with the package found in
+card's busy time under torch.profiler, and the extraction kernel, the whole
+ranking and the count stage's row gathers at the main path's shapes, with
+the package found in
 ``--root`` (default: beside this script), and prints one JSON line.  Run it
 on two checkouts in turns to compare them on one card.
 """
@@ -286,36 +296,57 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     m, r, l = 1 << 18, 2048, 128  # probe_pallas_gather.py:40, probe_pallas_gather2.py:34
     idx, tab, tab4, tab2 = ri(m, (m,)), ri(2**31, (m,)), ri(2**31, (m, 4)), ri(2**31, (r, l))
     idx_rows, idx_lanes, idx_flat, idx_r = ri(r, (r, l)), ri(l, (r, l)), ri(r * l, (r, l)), ri(r, (r,))
+    # torch.gather, torch.take and advanced indexing take int64 indices
+    rows64, lanes64 = idx_rows.long(), idx_lanes.long()
     # probe_pallas_gather.py:102-104: about 1% terminal
     succ = torch.where(torch.rand(m, generator=gen, device=device) < 0.99, ri(m, (m,)), -1).to(torch.int32)
     err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_round": 0,
            "rank_lists": 0}
-    for what, family, fn, plain in (  # each probe's form: (probe, kernel, kernel call, plain call)
+    # each probe's form: (probe, kernel, kernel call, plain call, the one
+    # PyTorch call computing the same function, or why there is none)
+    for what, family, fn, plain, library in (
         ("P1/P2 (2^18,) int32", "gather_rows",
-         lambda: gather_rows(tab, idx), lambda: gather_rows_plain(tab, idx)),
+         lambda: gather_rows(tab, idx), lambda: gather_rows_plain(tab, idx),
+         lambda: torch.index_select(tab, 0, idx)),
         ("P3 (2^18, 4) int32", "gather_rows",
-         lambda: gather_rows(tab4, idx), lambda: gather_rows_plain(tab4, idx)),
+         lambda: gather_rows(tab4, idx), lambda: gather_rows_plain(tab4, idx),
+         lambda: torch.index_select(tab4, 0, idx)),
         ("P4 (2^18,) int32, 18 hops", "successor_walk",
-         lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18)),
+         lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
+         "none: no one PyTorch call walks successors"),
         ("V1 (2048, 128) axis 0", "take_along_axis",
-         lambda: take_along_axis(tab2, idx_rows, 0), lambda: take_along_axis_plain(tab2, idx_rows, 0)),
+         lambda: take_along_axis(tab2, idx_rows, 0), lambda: take_along_axis_plain(tab2, idx_rows, 0),
+         lambda: torch.gather(tab2, 0, rows64)),
         ("V2 (2048, 128) axis 1", "take_along_axis",
-         lambda: take_along_axis(tab2, idx_lanes, 1), lambda: take_along_axis_plain(tab2, idx_lanes, 1)),
+         lambda: take_along_axis(tab2, idx_lanes, 1), lambda: take_along_axis_plain(tab2, idx_lanes, 1),
+         lambda: torch.gather(tab2, 1, lanes64)),
         ("V3 (2^18, 128) int32", "gather_rows",
          lambda: gather_rows(tab2, idx_rows.reshape(-1)),
-         lambda: gather_rows_plain(tab2, idx_rows.reshape(-1))),
+         lambda: gather_rows_plain(tab2, idx_rows.reshape(-1)),
+         lambda: torch.index_select(tab2, 0, idx_rows.reshape(-1))),
         ("V4 (2048, 128) two takes", "take_along_axis",
          lambda: take_along_axis(take_along_axis(tab2, idx_flat // l, 0), idx_flat % l, 1),
-         lambda: take_along_axis_plain(take_along_axis_plain(tab2, idx_flat // l, 0), idx_flat % l, 1)),
+         lambda: take_along_axis_plain(take_along_axis_plain(tab2, idx_flat // l, 0), idx_flat % l, 1),
+         "none: the second take reads the first's output at another lane, so the "
+         "pair is not torch.take of the flat index, and no one call composes them"),
         ("W1 (2048,) rows of 128", "gather_rows",
-         lambda: gather_rows(tab2, idx_r), lambda: gather_rows_plain(tab2, idx_r)),
+         lambda: gather_rows(tab2, idx_r), lambda: gather_rows_plain(tab2, idx_r),
+         lambda: torch.index_select(tab2, 0, idx_r)),
         ("W2 (2048, 128) row + lane take", "gather_rows",
          lambda: take_along_axis(gather_rows(tab2, idx_rows[:, 0]), idx_lanes, 1),
-         lambda: take_along_axis_plain(gather_rows_plain(tab2, idx_rows[:, 0]), idx_lanes, 1)),
+         lambda: take_along_axis_plain(gather_rows_plain(tab2, idx_rows[:, 0]), idx_lanes, 1),
+         lambda: tab2[rows64[:, :1], lanes64]),
     ):
-        err[family] = max(err[family], exact(what, fn(), plain()))
+        got = fn()
+        err[family] = max(err[family], exact(what, got, plain()))
         ms, plain_ms, _ = time_pair(fn, plain)
-        log(f"phase 2: {what}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if isinstance(library, str):
+            lib = library
+        else:
+            check(torch.equal(library(), got), f"{what}: the library call differs")
+            lib = f"{min(time_ms(library), time_ms(library)):.4f} ms"
+        log(f"phase 2: {what}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}")
+    host_launch_costs(tab2, idx_rows, rows64)
 
     # the main path's shape: the (2n, 4) int32 carry of chain linking on the
     # E. coli table, two lists of n states as the genome's one unitig gives,
@@ -326,39 +357,150 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
         torch.where(s0 < 0, torch.arange(n_states, device=device), -1),
     ], dim=1).to(torch.int32)
     gidx = torch.randint(0, n_states, (n_states,), generator=gen, device=device)
-    err["gather_rows"] = max(err["gather_rows"], exact("gather_rows main shape",
-                                                       gather_rows(x, gidx), gather_rows_plain(x, gidx)))
-    check(torch.equal(torch.index_select(x, 0, gidx), gather_rows(x, gidx)), "index_select != gather_rows")
-    idx_rows64 = idx_rows.to(torch.int64)
-    check(torch.equal(torch.gather(tab2, 0, idx_rows64), take_along_axis(tab2, idx_rows, 0)),
-          "torch.gather != take_along_axis")
+    gather_line("gather_rows, chain-linking carry", x, gidx)
+    rows_per_thread_sweep(x, gidx)
     spare = torch.empty_like(x)
     err["rank_round"] = exact("rank_round main shape", rank_round(x, out=spare), rank_round_plain(x))
     err["rank_lists"] = phase_ranking(gen, x, device)
-
     shape_main = f"({n_states}, 4) int32"
     carry_bytes = 2 * nbytes(x)
+    ms, plain_ms, _ = time_pair(lambda: rank_round(x, out=spare), lambda: rank_round_plain(x))
+    log(f"phase 2: rank_round on the whole carry {shape_main}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {carry_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    rank_row = rank_round_ruler_level(gen, x, device)
+    rank_list_row = kernel_row("rank_lists", "list_rank.cu", "tpu_debruijn/compress.py:277",
+                               lambda: rank_lists(x), lambda: rank_lists_plain(x),
+                               err["rank_lists"], shape_main + ", two lists", carry_bytes)
+    del x, gidx, spare, s0
+    torch.cuda.empty_cache()
+
+    # the count stage's gathers: one packed 16-byte row per observation of
+    # the E. coli reads, by the sort permutation (random) and by a sorted
+    # index (the valid-slot compaction's kind)
+    n_obs = -(-COVERAGE * ECOLI_LEN // READ_LEN) * (READ_LEN - K + 1)
+    obs = ri(2**31, (n_obs, 4))
+    perm = torch.randperm(n_obs, generator=gen, device=device)
+    count_row = gather_line("gather_rows, count stage by the sort permutation", obs, perm)
+    err["gather_rows"] = max(err["gather_rows"], count_row["max_abs_err"])
+    ordered = torch.arange(n_obs, device=device)
+    gather_line("gather_rows, count stage by a sorted index", obs, ordered)
+    rows_per_thread_sweep(obs, ordered)
+    del ordered
+    rows_per_thread_sweep(obs, perm)
+    del obs
+    # 32-byte rows, the packed observation rows of W = 3 and 4
+    gather_line("gather_rows, 32-byte rows by the sort permutation", ri(2**31, (n_obs, 8)), perm)
+    del perm
+    torch.cuda.empty_cache()
+
     rows = [
-        kernel_row("gather_rows", "gather.cu", "scripts/probe_pallas_gather.py:80",
-                   lambda: gather_rows(x, gidx), lambda: gather_rows_plain(x, gidx),
-                   err["gather_rows"], shape_main, nbytes(x, gidx, x),
-                   library=lambda: torch.index_select(x, 0, gidx)),
+        count_row,
         kernel_row("take_along_axis", "gather.cu", "scripts/probe_pallas_gather2.py:60",
                    lambda: take_along_axis(tab2, idx_rows, 0),
                    lambda: take_along_axis_plain(tab2, idx_rows, 0),
                    err["take_along_axis"], f"({r}, {l}) int32, axis 0", nbytes(tab2, idx_rows, tab2),
-                   library=lambda: torch.gather(tab2, 0, idx_rows64)),
+                   library=lambda: torch.gather(tab2, 0, rows64)),
         kernel_row("successor_walk", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
                    lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
                    err["successor_walk"], f"({m},) int32, 18 hops", 2 * nbytes(succ)),
-        kernel_row("rank_round", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
-                   lambda: rank_round(x, out=spare), lambda: rank_round_plain(x),
-                   err["rank_round"], shape_main, carry_bytes),
-        kernel_row("rank_lists", "list_rank.cu", "tpu_debruijn/compress.py:277",
-                   lambda: rank_lists(x), lambda: rank_lists_plain(x),
-                   err["rank_lists"], shape_main + ", two lists", carry_bytes),
+        {**rank_row, "max_abs_err": max(rank_row["max_abs_err"], err["rank_round"])},
+        rank_list_row,
     ]
     return rows
+
+
+def gather_line(what, table, idx) -> dict:
+    """gather_rows against its plain version (exact) and index_select on one
+    table and index; its kernel row, with the bytes-once bound and, beside
+    it, the floor of a random gather: a whole 32-byte sector read per row of
+    up to 32 bytes, plus the index and output streams."""
+    from tpu_debruijn_torch.kernels import gather_rows, gather_rows_plain
+
+    got = gather_rows(table, idx)
+    e = max_abs_diff((got,), (gather_rows_plain(table, idx),))
+    check(e == 0, f"{what}: kernel != plain (max abs err {e})")
+    check(torch.equal(torch.index_select(table, 0, idx), got), f"{what}: index_select differs")
+    del got
+    n, row = idx.shape[0], table[0].numel() * table.element_size()
+    shape = f"({table.shape[0]}, {table.shape[1]}) int32 table, {n} {str(idx.dtype)[6:]} indices"
+    rec = kernel_row("gather_rows", "gather.cu", "scripts/probe_pallas_gather.py:80",
+                     lambda: gather_rows(table, idx), lambda: gather_rows_plain(table, idx),
+                     e, shape, n * row + nbytes(idx) + n * row,
+                     library=lambda: torch.index_select(table, 0, idx))
+    sector_bytes = n * 32 * -(-row // 32) + nbytes(idx) + n * row
+    rec["random_floor_ms"] = sector_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase 2: {what}: {rec['ms'] / rec['random_floor_ms']:.2f}x the random-gather floor of "
+        f"{rec['random_floor_ms']:.4f} ms ({sector_bytes} bytes: a 32-byte sector per row read), "
+        f"{rec['ms'] / rec['bound_ms']:.2f}x the bytes-once bound; {n / rec['ms'] / 1e6:.2f} G rows/s")
+    return rec
+
+
+def rows_per_thread_sweep(table, idx) -> None:
+    """gather_rows' rows per thread, in turns around the wrapper's choice;
+    the variants: +256 no cache hints, +512 no grid stride."""
+    from tpu_debruijn_torch.kernels import gather as G
+
+    chosen, ms = G.ROWS_PER_THREAD, {}
+    order = [r + v for v in (0, 256, 512, 768) for r in (1, 4)]
+    for G.ROWS_PER_THREAD in order + order[::-1]:
+        t = time_ms(lambda: G.gather_rows(table, idx))
+        ms[G.ROWS_PER_THREAD] = min(t, ms.get(G.ROWS_PER_THREAD, t))
+    G.ROWS_PER_THREAD = chosen
+    log(f"phase 2: gather_rows ms by ROWS_PER_THREAD at ({table.shape[0]}, {table.shape[1]}), "
+        f"{str(idx.dtype)[6:]} index sorted={bool((idx[1:] >= idx[:-1]).all())} "
+        f"(wrapper: {chosen}): " + json.dumps(ms))
+
+
+def rank_round_ruler_level(gen, x, device) -> dict:
+    """rank_round at the shape rank_lists gives it on the main carry: the
+    ruler level, one row per ruler (the carry's terminal states and its
+    states whose hash picks them at the wrapper's spacing), linked into as
+    many lists as the carry has."""
+    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+
+    n = x.shape[0]
+    live = x[:, 0] >= 0
+    nr = int((~live | PJ.hashed_ruler(torch.arange(n, device=device), PJ.RULER_SPACING)).sum())
+    n_lists = int((~live).sum())
+    s = successor_forest(gen, nr, max(1, nr // n_lists), device)
+    y = torch.stack([s, s >= 0, torch.randint(0, 1 << 30, (nr,), generator=gen, device=device),
+                     torch.where(s < 0, torch.arange(nr, device=device), -1)], dim=1).to(torch.int32)
+    spare = torch.empty_like(y)
+    e = max_abs_diff(PJ.rank_round(y, out=spare)[:1], PJ.rank_round_plain(y)[:1])
+    check(e == 0, f"rank_round at the ruler level: kernel != plain (max abs err {e})")
+    return kernel_row("rank_round", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
+                      lambda: PJ.rank_round(y, out=spare), lambda: PJ.rank_round_plain(y),
+                      e, f"({nr}, 4) int32, the ruler level of the main carry at spacing "
+                      f"{PJ.RULER_SPACING}", 2 * nbytes(y))
+
+
+def host_launch_costs(tab2, idx_rows, rows64, calls: int = 1000) -> None:
+    """Host time per call (us) of take_along_axis and torch.gather, each
+    over ``calls`` launches with no synchronize in between, in turns; and of
+    the two ways to get the current stream's pointer."""
+    from tpu_debruijn_torch.kernels import take_along_axis
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    dev = tab2.device
+    fns = {
+        "take_along_axis": lambda: take_along_axis(tab2, idx_rows, 0),
+        "torch.gather": lambda: torch.gather(tab2, 0, rows64),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+    }
+    us = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        us[name].append(per_call(fns[name]))
+    log(f"phase 2: host us per call over {calls} unsynchronised calls: " + json.dumps(us))
 
 
 def phase_ranking(gen, x, device) -> int:
@@ -417,24 +559,29 @@ def phase_ranking(gen, x, device) -> int:
 
 def quick_start(fastq: str, device, out_gfa: str):
     """The README quick start on the port; returns (reads, table, nodes,
-    graph, stage seconds)."""
+    graph, stage seconds, gather_rows launches of the count and compress
+    stages)."""
     import tpu_debruijn_torch as T
+    from tpu_debruijn_torch.kernels import gather_rows
 
     sync = (lambda: torch.cuda.synchronize()) if torch.device(device).type == "cuda" else (lambda: None)
     t = [time.perf_counter()]
+    g = [gather_rows.launches]
     reads = T.read_fastq(fastq)
     t.append(time.perf_counter())
     table = T.filter_kmers([(r, 0, 0) for r in reads], k=K, stranded=False, min_obs=2, device=device)
     sync()
     t.append(time.perf_counter())
+    g.append(gather_rows.launches)
     nodes = T.compress_kmers(table, device=device)
     sync()
     t.append(time.perf_counter())
+    g.append(gather_rows.launches)
     graph = T.from_compress_output(K, False, nodes).finish(device=device)
     graph.to_gfa(out_gfa)
     t.append(time.perf_counter())
     stages = dict(zip(("read", "count", "compress", "graph_gfa"), np.diff(t).tolist()))
-    return reads, table, nodes, graph, stages
+    return reads, table, nodes, graph, stages, dict(zip(("count", "compress"), np.diff(g).tolist()))
 
 
 def unitig_kmers(spec, nodes, device) -> torch.Tensor:
@@ -488,15 +635,19 @@ def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
     fq = os.path.join(tmp, f"{name}.fq")
     write_fastq(fq, reads)
     torch.cuda.reset_peak_memory_stats()
-    reads_in, table, nodes, graph, stages = quick_start(fq, "cuda", os.path.join(tmp, f"{name}.gfa"))
+    reads_in, table, nodes, graph, stages, gathers = quick_start(
+        fq, "cuda", os.path.join(tmp, f"{name}.gfa"))
     peak = torch.cuda.max_memory_allocated()
     check_assembly(table, nodes, graph, os.path.join(tmp, f"{name}.gfa"),
                    genome if check_substrings else None)
+    for stage, launched in gathers.items():
+        check(launched > 0, f"the {stage} stage never launched gather_rows")
     info = {
         "genome_bp": len(genome), "reads": len(reads), "read_len": READ_LEN,
         "coverage": COVERAGE, "k": K, "observations": n_obs, "table_kmers": len(table),
         "unitigs": len(nodes), "stage_s": stages, "total_s": sum(stages.values()),
         "count_obs_per_s": n_obs / stages["count"], "peak_device_bytes": peak,
+        "gather_rows_launches_by_stage": gathers,
     }
     os.remove(fq)
     return info, reads_in, nodes
@@ -561,7 +712,10 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     check(len(nodes) == len(nodes_main) and all(
         np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nodes, nodes_main)
     ), "ordered-path unitigs != the quick start's")
+    before = counters["gather_rows"].launches
     edges = C.resolve_edges(table.spec, False, table.kmers, table.exts)
+    resolve_gathers = counters["gather_rows"].launches - before
+    check(resolve_gathers > 0, "resolve_edges never launched gather_rows")
     n_iv = int(C.discovery_intervals(edges["partner_l"], edges["partner_r"], table.data)[-1].sum())
     n = len(table)
 
@@ -585,6 +739,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
         "compress_s_plain": compress_s["plain"], "compress_device_ms": device_ms,
         "stage_s": dict(zip(("count_obs_min", "compress_ordered", "assemble"), np.diff(t).tolist())),
         "peak_device_bytes": peak, "launches": launches,
+        "resolve_edges_gather_rows_launches": resolve_gathers,
     }
 
 
@@ -597,7 +752,7 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     out = {}
     for dev in ("cuda", "cpu"):
         gfa = os.path.join(tmp, f"small_{dev}.gfa")
-        _, table, nodes, graph, _ = quick_start(fq, dev, gfa)
+        _, table, nodes, graph, _, _ = quick_start(fq, dev, gfa)
         with open(gfa, "rb") as f:
             out[dev] = (table_to_numpy(table), nodes, f.read())
     (tc, nc, gc), (tp, np_, gp) = out["cuda"], out["cpu"]
@@ -613,12 +768,12 @@ def phase_device_vs_cpu(rng, tmp) -> None:
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
-    time of one call of each, the extraction kernel and the whole ranking at
-    the main path's shapes (CUDA events).  Uses only entry points that every
-    version of the port has."""
+    time of one call of each, the extraction kernel, the whole ranking and
+    gather_rows at the main path's shapes (CUDA events).  Uses only entry
+    points that every version of the port has."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
-    from tpu_debruijn_torch.kernels import _build, extract_canonical
+    from tpu_debruijn_torch.kernels import _build, extract_canonical, gather_rows
     from tpu_debruijn_torch.kmer import KmerSpec
 
     _build.library()
@@ -648,7 +803,7 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
         for name, fn in linkers.items():
             out[name].append(timed(fn)[0])
     out["device_ms"] = {
-        "count": profile_device_ms(count),
+        "count": profile_device_ms(count, top=10),
         "compress": profile_device_ms(lambda: T.compress_kmers(table, device=device)),
         "linker_ordered": profile_device_ms(linkers["linker_ordered_s"]),
     }
@@ -669,6 +824,15 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     succ = successor_forest(gen, n_states, n_states // 2, device)
     mnmo = torch.randint(0, 1 << 30, (n_states,), generator=gen, device=device)
     out["rank_all_ms"] = min(time_ms(lambda: C._rank_all(succ, mnmo)) for _ in range(2))
+    del succ, mnmo
+    # gather_rows at the count stage's shape: (n_obs, 4) int32 rows by a
+    # random permutation and by a sorted index
+    n_obs = n_reads * (READ_LEN - K + 1)
+    obs = torch.randint(0, 1 << 31, (n_obs, 4), generator=gen, dtype=torch.int32, device=device)
+    out["gather_rows_count_ms"] = {}
+    for name, idx in (("random", torch.randperm(n_obs, generator=gen, device=device)),
+                      ("sorted", torch.arange(n_obs, device=device))):
+        out["gather_rows_count_ms"][name] = min(time_ms(lambda: gather_rows(obs, idx)) for _ in range(2))
     return out
 
 

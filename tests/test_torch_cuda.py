@@ -103,6 +103,96 @@ def test_gather_rows_kernel_matches_plain(cuda, c, dtype, idx_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("words", [1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 128])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, (1 << 20) + 3])
+def test_gather_rows_multi_row_kernel_matches_plain(cuda, n, words, idx_dtype):
+    """Ragged tiles of the rows-per-thread kernel (up to 8 words) and the
+    warp kernel (above), out-of-range indices clamped."""
+    rng = np.random.default_rng(words)
+    m = 3001
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (m, words)).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-7, m + 7, n)).to(idx_dtype).to(cuda)
+    got = gather_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(tab, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 4, 6, 8])
+@pytest.mark.parametrize("rows_per_thread", [1, 2, 4, 8])
+def test_gather_rows_each_rows_per_thread(cuda, monkeypatch, rows_per_thread, words):
+    from tpu_debruijn_torch.kernels import gather as G
+
+    monkeypatch.setattr(G, "ROWS_PER_THREAD", rows_per_thread)
+    rng = np.random.default_rng(rows_per_thread)
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (70_001, words)).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-3, 70_004, 300_007)).to(cuda)
+    got = gather_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(tab, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape", [(33, 7), (5, 3001), (1, 1), (3, 5)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_axis_ragged_shapes(cuda, axis, shape, idx_dtype):
+    """Element counts that are not a multiple of 4 (the one-element path)."""
+    rng = np.random.default_rng(7)
+    tab = torch.from_numpy(rng.integers(0, 2**31, shape).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-3, shape[axis] + 3, shape)).to(idx_dtype).to(cuda)
+    before = take_along_axis.launches
+    got = take_along_axis(tab, idx, axis)
+    assert take_along_axis.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, take_along_axis_plain(tab, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_axis_unaligned_indices(cuda, axis):
+    """A row width that is a multiple of 4 (the four-element path) with the
+    indices a view that does not start on 16 bytes."""
+    rng = np.random.default_rng(8)
+    r, l = 7, 12
+    tab = torch.from_numpy(rng.integers(0, 2**31, (r, l)).astype(np.int32)).to(cuda)
+    flat = torch.from_numpy(rng.integers(-2, (r, l)[axis] + 2, r * l + 1).astype(np.int32)).to(cuda)
+    idx = flat[1:].view(r, l)
+    got = take_along_axis(tab, idx, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(got, take_along_axis_plain(tab, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_reduce", ["label_first", "min", "obs_min", "none"])
+@pytest.mark.parametrize("k", [15, 31, 33, 63])
+def test_count_stage_gathers_on_card(cuda, k, data_reduce):
+    """filter_kmers on the card moves its observations with gather_rows and
+    gives the CPU's table; edge resolution gathers with it too."""
+    from tpu_debruijn_torch import compress as TC
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import table_to_numpy
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 5_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - 150, 600)
+    reads = [(genome[s : s + 150], int(rng.integers(0, 256)), int(rng.integers(-99, 99)))
+             for s in starts]
+    kw = dict(stranded=False, min_obs=2, report_all=True, data_reduce=data_reduce)
+    before = gather_rows.launches
+    table = TF.filter_kmers(reads, k, device=cuda, **kw)
+    assert gather_rows.launches >= before + 3  # compaction, permutation, run starts
+    got, want = table_to_numpy(table), table_to_numpy(TF.filter_kmers(reads, k, device="cpu", **kw))
+    assert got.keys() == want.keys() and all(np.array_equal(got[x], want[x]) for x in got)
+    before = gather_rows.launches
+    edges = TC.resolve_edges(table.spec, False, table.kmers, table.exts)
+    assert gather_rows.launches > before
+    plain = TC.resolve_edges(table.spec, False, table.kmers.cpu(), table.exts.cpu())
+    assert all(torch.equal(edges[x].cpu(), plain[x]) for x in plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_take_along_axis_kernel_matches_plain(cuda, axis, idx_dtype):
     rng = np.random.default_rng(1)

@@ -187,6 +187,20 @@ def test_gather_rows_clamps_out_of_range(rng, c, dtype):
     assert np.array_equal(got.numpy(), tab[np.clip(idx, 0, 49)])
 
 
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("words", [3, 5, 6, 8])
+def test_gather_rows_plain_row_widths_match_take(rng, words, idx_dtype):
+    """Rows of 3-8 int32 words (the count stage's packed observation rows
+    are 4 or 8) against jnp.take of the clamped indices."""
+    from tpu_debruijn_torch.kernels import gather_rows_plain
+
+    tab = _i32(rng, 2**31, (M, words)) - (1 << 30)
+    idx = rng.integers(-40, M + 40, 3 * M).astype(idx_dtype)
+    want = np.asarray(jnp.take(jnp.asarray(tab), jnp.asarray(np.clip(idx, 0, M - 1)), axis=0))
+    assert np.array_equal(gather_rows_plain(_t(tab), _t(idx)).numpy(), want)
+    assert np.array_equal(gather_rows(_t(tab), _t(idx)).numpy(), want)
+
+
 @pytest.mark.parametrize("axis", [0, 1])
 def test_take_along_axis_clamps_out_of_range(rng, axis):
     tab2 = _i32(rng, 2**31, (R, L))

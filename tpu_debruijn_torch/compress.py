@@ -107,7 +107,7 @@ def _enforce_mutual(partners, ins):
     out = {}
     for d, name in ((LEFT, "l"), (RIGHT, "r")):
         j = partners[d]
-        rp = pmat[j.clamp(0, max(n - 1, 0))]
+        rp = gather_rows(pmat, j)  # j = -1 reads row 0, masked below
         rev = torch.where(ins[d] == LEFT, rp[:, 0], rp[:, 1])
         out[f"partner_{name}"] = torch.where((j >= 0) & (rev == idx_self), j, -1)
         out[f"in_{name}"] = ins[d]

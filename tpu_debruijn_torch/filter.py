@@ -12,6 +12,13 @@ gone: invalid slots are dropped before the sort and per-run aggregates come
 from run boundaries.  On a CUDA tensor the frontend is the fused kernel
 (``kernels/extract_canonical.py``); on a CPU tensor it is the plain
 :func:`extract_kmers` + :func:`canonicalize`.
+
+``jax.lax.sort`` carries each observation's exts and label through the sort
+as payload operands; ``torch.sort`` has none.  So each observation becomes
+one packed int32 row (:func:`pack_obs_rows`: the limbs' 32-bit words, exts,
+the label, padding to 16 or 32 bytes) and every per-observation move is one
+row gather (``kernels.gather_rows``): the valid-slot compaction and the
+sort permutation.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize as _canonicalize
 from tpu_debruijn_torch.kernels.extract_canonical import extract_canonical, extract_kmers
-from tpu_debruijn_torch.kmer import KmerSpec
+from tpu_debruijn_torch.kernels.gather import gather_rows
+from tpu_debruijn_torch.kmer import M32, KmerSpec
 
 __all__ = [
     "KmerTable",
@@ -33,7 +41,10 @@ __all__ = [
     "count_kmers",
     "extract_kmers",
     "filter_kmers",
+    "obs_row_words",
+    "pack_obs_rows",
     "pad_reads",
+    "row_limbs",
 ]
 
 COUNT_MAX = 65535  # counts saturate at u16, as in the reference
@@ -70,14 +81,48 @@ class KmerTable:
         return self.kmers.shape[0]
 
 
-def _run_or8(vals: torch.Tensor, starts_idx: torch.Tensor, ends_idx: torch.Tensor):
-    """Bitwise OR of 8-bit ``vals`` over each run [start, end): one
-    cumulative sum per bit, differenced at the run boundaries."""
-    out = torch.zeros(starts_idx.shape[0], dtype=torch.int32, device=vals.device)
-    zero = torch.zeros(1, dtype=torch.int32, device=vals.device)
+def obs_row_words(w: int) -> int:
+    """Words of a packed observation row: W limbs, exts and a label,
+    padded to one 16-byte (W <= 2) or 32-byte (W = 3, 4) load."""
+    return 4 if w <= 2 else 8
+
+
+def pack_obs_rows(kmers: torch.Tensor, exts: torch.Tensor, labels=None) -> torch.Tensor:
+    """(..., W) int64 limbs in [0, 2^32), (...) exts and optional labels
+    (int32, broadcast to (...)) -> (..., :func:`obs_row_words`) int32 rows.
+
+    Word j < W is limb j's 32-bit pattern, word W the exts, word W + 1 the
+    label when there is one; the rest is zero.  :func:`row_limbs` inverts
+    the limbs."""
+    w = kmers.shape[-1]
+    rows = torch.empty(kmers.shape[:-1] + (obs_row_words(w),), dtype=torch.int32,
+                       device=kmers.device)
+    # the low word of each little-endian int64 limb
+    rows[..., :w] = kmers.contiguous().view(torch.int32)[..., 0::2]
+    rows[..., w] = exts
+    pad = w + 1
+    if labels is not None:
+        rows[..., w + 1] = labels
+        pad += 1
+    rows[..., pad:] = 0
+    return rows
+
+
+def row_limbs(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """The (..., W) int64 limbs of packed observation rows."""
+    return rows[..., :w].to(torch.int64) & M32
+
+
+def _run_or8(vals: torch.Tensor, ends: torch.Tensor):
+    """Bitwise OR of 8-bit ``vals`` over each run of a partition of [0, n)
+    into runs that end (exclusive) at ``ends``: one cumulative count per
+    bit, read at each run's last element and differenced."""
+    out = torch.zeros(ends.shape[0], dtype=torch.int32, device=vals.device)
+    vals = vals.contiguous()  # a column of the packed rows: read them once
+    last = ends - 1
     for b in range(8):
-        c = torch.cat([zero, torch.cumsum((vals >> b) & 1, 0, dtype=torch.int32)])
-        out |= ((c[ends_idx] - c[starts_idx]) > 0).to(torch.int32) << b
+        c = gather_rows(torch.cumsum((vals >> b) & 1, 0, dtype=torch.int32), last)
+        out |= (torch.diff(c, prepend=c.new_zeros(1)) > 0).to(torch.int32) << b
     return out
 
 
@@ -106,36 +151,39 @@ def count_kmers(
     """
     if data_reduce not in ("label_first", "min", "obs_min", "none"):
         raise ValueError(f"data_reduce {data_reduce!r} is not ported")
+    w = spec.w
     kmers, exts, valid = extract_canonical(spec, bases, lengths, seq_exts, stranded)
-    vf = valid.reshape(-1)
-    kf = kmers.reshape(-1, spec.w)[vf]
-    ef = exts.reshape(-1)[vf]
     lab = None
     if data_reduce == "obs_min":
-        lab = torch.nonzero(vf).flatten().to(torch.int32)
+        lab = torch.arange(valid.numel(), dtype=torch.int32, device=valid.device).reshape(valid.shape)
     elif data_reduce != "none":
-        lab = labels.to(torch.int32)[:, None].expand(valid.shape).reshape(-1)[vf]
-    del kmers, exts, valid, vf
+        lab = labels.to(torch.int32)[:, None]
+    rows = pack_obs_rows(kmers, exts, lab).reshape(-1, obs_row_words(w))
+    del kmers, exts, lab
+    # the valid slots in slot order, then stably sorted by kmer
+    rows = gather_rows(rows, torch.nonzero(valid.reshape(-1)).flatten())
+    del valid
+    perm = S.lex_argsort(row_limbs(rows, w))
+    srows = gather_rows(rows, perm)
+    del rows, perm
 
-    perm = S.lex_argsort(kf)
-    skmers = kf[perm]
-    del kf
-    is_start = S.run_starts(skmers)
-    starts = torch.nonzero(is_start).flatten()
-    n_obs = skmers.shape[0]
-    ends = torch.cat([starts[1:], torch.full((1,), n_obs, dtype=starts.dtype, device=starts.device)])
+    # run boundaries on the limbs' words: equal words, equal limbs
+    is_start = S.run_starts(srows[:, :w])
+    bounds = torch.nonzero(torch.cat([is_start, is_start.new_ones(1)])).flatten()
+    starts, ends = bounds[:-1], bounds[1:]
     counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
-    or_exts = _run_or8(ef[perm], starts, ends)
-    ukmers = skmers[starts]
-    if lab is None:
+    or_exts = _run_or8(srows[:, w], ends)
+    # the stable sort keeps each run's observations in slot order, so the
+    # run start holds the first label and the least slot index
+    urows = gather_rows(srows, starts)
+    ukmers = row_limbs(urows, w)
+    if data_reduce == "none":
         data = torch.zeros_like(counts)
     elif data_reduce == "min":
         run = torch.cumsum(is_start, 0) - 1
-        data = S.segment_min(lab[perm], run, starts.shape[0])
+        data = S.segment_min(srows[:, w + 1], run, starts.shape[0])
     else:
-        # the stable sort keeps each run's observations in slot order, so
-        # the run start holds the first label and the least slot index
-        data = lab[perm[starts]]
+        data = urows[:, w + 1]
     keep = counts >= min_obs
     return KmerTable(
         spec=spec,

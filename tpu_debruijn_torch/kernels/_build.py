@@ -1,14 +1,17 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, in ``_build/`` beside the
-package (a directory git ignores).  The library's name carries a hash of
-the sources and flags, so an edited source never loads a stale build.
-A plain C interface keeps the build at seconds: no PyTorch header is
-compiled.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, in ``_build/``
+beside the package (a directory git ignores).  The library's name carries a
+hash of the sources and flags, so an edited source never loads a stale
+build.  A plain C interface keeps the build at seconds: no PyTorch header
+is compiled.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+:meth:`KernelLibrary.function` resolves an entry point and sets its ctypes
+argument types once, so a launch costs one ctypes call.
 """
 
 from __future__ import annotations
@@ -27,10 +30,8 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 
 class KernelLibrary:
@@ -41,11 +42,17 @@ class KernelLibrary:
         self.build_seconds = build_seconds
         self.build_log = build_log
         self.cdll = ctypes.CDLL(path)
+        self._functions = {}
 
     def function(self, name: str, argtypes):
-        fn = getattr(self.cdll, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        """The C entry point ``name``, resolved with its argument types on
+        first use and cached."""
+        fn = self._functions.get(name)
+        if fn is None:
+            fn = getattr(self.cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self._functions[name] = fn
         return fn
 
 
@@ -79,17 +86,39 @@ def library() -> KernelLibrary:
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(out):
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
+        log = _compile_and_link(srcs, out)
     _LIBRARY = KernelLibrary(out, time.perf_counter() - t0, log)
     return _LIBRARY
+
+
+def _compile_and_link(srcs: list, out: str) -> str:
+    """One nvcc per source, all running at once, then one link into
+    ``out``; returns the compilers' output (``-Xptxas=-v``)."""
+    nvcc = _nvcc()
+    tag = f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(srcs))]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        for s, p, text in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(s)} ({p.returncode}):\n{text}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+        os.replace(f"{tag}.tmp", out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
 
 
 def check(name: str, code: int) -> None:
@@ -98,5 +127,15 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
+# PyTorch's public API gives the current stream only as a Stream object,
+# which costs microseconds to build per launch; the raw getter is the one
+# PyTorch's own generated code (inductor) launches with.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` (a tensor's device: its index
+    is set), as an integer for a C entry point."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream

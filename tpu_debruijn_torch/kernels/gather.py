@@ -6,12 +6,16 @@ a table held in on-chip memory (``scripts/probe_pallas_gather.py`` ``k1``,
 ``k2``, ``k3``; ``scripts/probe_pallas_gather2.py`` ``k_v1`` … ``k_v4``;
 ``scripts/probe_pallas_gather3.py`` ``k1``, ``k2``).  On the H100 a thread
 loads from any address, so each gather is one pass bound by the latency of
-its random reads: :func:`gather_rows` moves a row with one thread and
-16-byte loads up to 32 bytes a row, and with one warp above that.
+its random reads: :func:`gather_rows` keeps ``ROWS_PER_THREAD`` rows of up
+to 32 bytes in flight per thread, and moves wider rows with one warp each.
 
-Chain linking reads its per-state unitig id and length through
-:func:`gather_rows` (``compress._emit_chains``), so the kernel runs on the
-main path.
+:func:`gather_rows` carries the main path's row gathers on a CUDA tensor:
+the count stage's valid-slot compaction and sort-permutation gathers of
+the packed observation rows (``filter.count_kmers``), the LSD sort's key
+and permutation gathers (``sorting.lex_argsort``), the table searches and
+joins of edge resolution (``sorting.searchsorted_limbs``/``join_limbs``,
+``compress._enforce_mutual``) and chain emission's per-state read
+(``compress._emit_chains``).
 
 Both wrappers launch their kernel for a CUDA tensor and run the plain
 PyTorch version (``*_plain``) for a CPU tensor; ``.launches`` counts kernel
@@ -28,12 +32,20 @@ import torch
 
 from tpu_debruijn_torch.kernels import _build
 
-# both entry points: (table, idx, int64, int64, int, idx_is_64, out, stream)
-_ARGTYPES = [
+# (table, idx, m, n, words, idx_is_64, rows_per_thread, out, stream)
+_ROWS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+]
+# (tab, idx, r, l, axis, idx_is_64, out, stream)
+_TAKE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 ]
 _INDEX_TYPES = (torch.int32, torch.int64)
+# rows of up to 8 words each thread keeps in flight (1, 2, 4 or 8), chosen
+# on the H100: PERF.md
+ROWS_PER_THREAD = 4
 
 
 def _check_index(name: str, idx: torch.Tensor, device) -> None:
@@ -52,31 +64,34 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Row ``i`` of the result is row ``idx[i]`` of ``table``; an index outside
     [0, M) is clamped into it.  A 1-D (M,) table gives (N,).
     """
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    if table.device.type != "cuda":
-        raise ValueError(f"gather_rows: no kernel for device {table.device}")
-    if table.dtype not in (torch.int32, torch.int64) or table.dim() not in (1, 2):
+    dev = table.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return gather_rows_plain(table, idx)
+        raise ValueError(f"gather_rows: no kernel for device {dev}")
+    shape = table.shape
+    if table.dtype not in _INDEX_TYPES or len(shape) not in (1, 2):
         raise ValueError("gather_rows: table must be (M,) or (M, C), int32 or int64")
-    _check_index("gather_rows", idx, table.device)
+    _check_index("gather_rows", idx, dev)
     if idx.dim() != 1:
         raise ValueError("gather_rows: indices must be 1-D")
-    m = table.shape[0]
-    n = idx.shape[0]
-    out = torch.empty((n,) + tuple(table.shape[1:]), dtype=table.dtype, device=table.device)
-    if n == 0 or out.numel() == 0:
+    m, n = shape[0], idx.shape[0]
+    out = torch.empty((n,) + shape[1:], dtype=table.dtype, device=dev)
+    c = shape[1] if len(shape) == 2 else 1
+    if n == 0 or c == 0:
         return out
     if m == 0:
         raise ValueError("gather_rows: gather from an empty table")
     table = table.contiguous()
-    if table.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
+    table_ptr = table.data_ptr()
+    if table_ptr % 16:  # the kernel reads rows with 16-byte loads
         table = table.clone()
+        table_ptr = table.data_ptr()
     idx = idx.contiguous()
-    words = table[0].numel() * table.element_size() // 4
-    fn = _build.library().function("tdb_gather_rows", _ARGTYPES)
+    fn = _build.library().function("tdb_gather_rows", _ROWS_ARGTYPES)
     _build.check("tdb_gather_rows", fn(
-        table.data_ptr(), idx.data_ptr(), m, n, words, int(idx.dtype == torch.int64),
-        out.data_ptr(), _build.stream_ptr(table.device),
+        table_ptr, idx.data_ptr(), m, n, c * table.element_size() // 4,
+        idx.dtype == torch.int64, ROWS_PER_THREAD, out.data_ptr(), _build.stream_ptr(dev),
     ))
     gather_rows.launches += 1
     return out
@@ -97,27 +112,34 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
     for axis 1 (``jnp.take_along_axis``); an index outside the axis is
     clamped into it.
     """
-    if axis not in (0, 1):
+    if axis != 0 and axis != 1:
         raise ValueError(f"take_along_axis: axis must be 0 or 1, not {axis}")
-    if tab.device.type == "cpu":
-        return take_along_axis_plain(tab, idx, axis)
-    if tab.device.type != "cuda":
-        raise ValueError(f"take_along_axis: no kernel for device {tab.device}")
-    if tab.dtype != torch.int32 or tab.dim() != 2:
+    dev = tab.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return take_along_axis_plain(tab, idx, axis)
+        raise ValueError(f"take_along_axis: no kernel for device {dev}")
+    # few tensor attribute reads: at the probes' sizes the host path is the cost
+    shape = tab.shape
+    if tab.dtype != torch.int32 or len(shape) != 2:
         raise ValueError("take_along_axis: table must be (R, L) int32")
-    _check_index("take_along_axis", idx, tab.device)
-    if idx.shape != tab.shape:
+    _check_index("take_along_axis", idx, dev)
+    if idx.shape != shape:
         raise ValueError("take_along_axis: indices must have the table's shape")
-    r, l = tab.shape
-    out = torch.empty_like(tab)
-    if out.numel() == 0:
+    r, l = shape
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if r * l == 0:
         return out
     tab = tab.contiguous()
     idx = idx.contiguous()
-    fn = _build.library().function("tdb_take_along_axis", _ARGTYPES)
+    idx_ptr = idx.data_ptr()
+    if idx_ptr % 16:  # the kernel reads indices with 16-byte loads
+        idx = idx.clone()
+        idx_ptr = idx.data_ptr()
+    fn = _build.library().function("tdb_take_along_axis", _TAKE_ARGTYPES)
     _build.check("tdb_take_along_axis", fn(
-        tab.data_ptr(), idx.data_ptr(), r, l, axis, int(idx.dtype == torch.int64),
-        out.data_ptr(), _build.stream_ptr(tab.device),
+        tab.data_ptr(), idx_ptr, r, l, axis, idx.dtype == torch.int64,
+        out.data_ptr(), _build.stream_ptr(dev),
     ))
     take_along_axis.launches += 1
     return out

@@ -6,7 +6,9 @@ key, biased by 2**63 so that signed int64 order is the unsigned order.
 W <= 2 sorts in one ``torch.sort`` pass; W = 3-4 takes two stable passes,
 least-significant key first (LSD).  Searches use ``torch.searchsorted`` on
 the packed key for W <= 2 and a vectorized binary search over the limbs
-for W > 2.
+for W > 2.  The row gathers of the LSD passes, the searches and the join go
+through :func:`~tpu_debruijn_torch.kernels.gather.gather_rows` (the kernel
+on a CUDA tensor, plain indexing on a CPU one).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 import torch
 
 from tpu_debruijn_torch import kmer as KM
+from tpu_debruijn_torch.kernels.gather import gather_rows
 
 _BIAS = -(1 << 63)  # flips the sign bit of a packed pair of limbs
 
@@ -41,8 +44,8 @@ def lex_argsort(limbs: torch.Tensor) -> torch.Tensor:
     """Stable permutation that sorts the rows of ``limbs`` lexicographically."""
     perm = None
     for key in reversed(pack_keys(limbs)):  # LSD: least significant key first
-        _, p = torch.sort(key if perm is None else key[perm], stable=True)
-        perm = p if perm is None else perm[p]
+        _, p = torch.sort(key if perm is None else gather_rows(key, perm), stable=True)
+        perm = p if perm is None else gather_rows(perm, p)
     return perm
 
 
@@ -114,20 +117,22 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
     if n == 0:
         return (torch.zeros(m, dtype=torch.int64, device=dev),
                 torch.zeros(m, dtype=torch.bool, device=dev))
+    # gather_rows clamps an index of n to the last row
     if w <= 2:
         skey = pack_keys(sorted_limbs)[0].contiguous()
         qkey = pack_keys(query_limbs)[0].contiguous()
         idx = torch.searchsorted(skey, qkey)
-        found = (idx < n) & (skey[idx.clamp(max=n - 1)] == qkey)
+        found = (idx < n) & (gather_rows(skey, idx) == qkey)
         return idx, found
+    sorted_limbs = sorted_limbs.contiguous()
     lo = torch.zeros(m, dtype=torch.int64, device=dev)
     hi = torch.full((m,), n, dtype=torch.int64, device=dev)
     for _ in range(max(1, math.ceil(math.log2(n + 1)))):
         mid = (lo + hi) // 2
-        is_lt = lex_lt(sorted_limbs[mid.clamp(max=n - 1)], query_limbs)
+        is_lt = lex_lt(gather_rows(sorted_limbs, mid), query_limbs)
         lo = torch.where(is_lt, mid + 1, lo)
         hi = torch.where(is_lt, hi, mid)
-    found = (lo < n) & lex_eq(sorted_limbs[lo.clamp(max=n - 1)], query_limbs)
+    found = (lo < n) & lex_eq(gather_rows(sorted_limbs, lo), query_limbs)
     return lo, found
 
 
@@ -140,6 +145,5 @@ def join_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor,
     found) and vals the matched row's ``table_vals``.
     """
     idx, found = searchsorted_limbs(sorted_limbs, query_limbs)
-    n = sorted_limbs.shape[0]
-    vals = table_vals[idx.clamp(0, max(n - 1, 0))] if n else torch.zeros_like(idx)
+    vals = gather_rows(table_vals, idx) if sorted_limbs.shape[0] else torch.zeros_like(idx)
     return idx, found, vals
