@@ -20,10 +20,10 @@ Phases; any failure raises and the script exits non-zero:
    and torch.gather.  gather_rows also at the main path's shapes: the (2n,
    4) ranking carry for the genome's 4,641,622 kmers and the count stage's
    (111.4M, 4) observation rows by a random permutation and by a sorted
-   index, each beside its bytes-once bound and the random-gather floor (a
-   32-byte sector per row), and its rows per thread swept.  rank_round at
-   the ruler level of that carry (the shape rank_lists launches it at) and
-   on the whole carry.  The whole ranking (rank_lists, the ruling set)
+   index, and 32-byte rows by the permutation, each beside its bytes-once
+   bound and the random-gather floor (a 32-byte sector per row).
+   rank_round at the ruler level of that carry (the shape rank_lists
+   launches it at) and on the whole carry.  The whole ranking (rank_lists, the ruling set)
    against the plain doubling loop on that carry, a list forest and an
    input with cycles: exact where a path ends, the cycle contract on
    cycles; timed against the rank_round loop.
@@ -31,18 +31,18 @@ Phases; any failure raises and the script exits non-zero:
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
-   rank_lists and rank_round launched, gather_rows in both the count and
-   the compress stage, and rank_lists never took its round path, the table
-   lies on the card, every table kmer is in exactly one unitig, every
+   rank_lists and rank_round launched, gather_rows in the count and
+   compress stages and in resolve_edges (called once more on the table
+   after the counts are read), rank_lists never took its round path, the
+   table lies on the card, every table kmer is in exactly one unitig, every
    unitig is a substring of the genome or of its reverse complement, and
    the GFA has one S line per node.
 4. The read-ordered path on phase 3's reads, held in memory:
    filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
    to the plain linker's on the same table, unitigs equal to phase 3's,
-   the same kernels launched as in phase 3, gather_rows launched inside
-   resolve_edges; prints the interval count, the rank_round launches and
-   the compress seconds of both linkers.
+   the same kernels launched as in phase 3; prints the interval count, the
+   rank_round launches and the compress seconds of both linkers.
 5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
    checks as phase 3 but the substring one.
 6. The CUDA path against the CPU path on a small input: identical tables,
@@ -358,7 +358,6 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     ], dim=1).to(torch.int32)
     gidx = torch.randint(0, n_states, (n_states,), generator=gen, device=device)
     gather_line("gather_rows, chain-linking carry", x, gidx)
-    rows_per_thread_sweep(x, gidx)
     spare = torch.empty_like(x)
     err["rank_round"] = exact("rank_round main shape", rank_round(x, out=spare), rank_round_plain(x))
     err["rank_lists"] = phase_ranking(gen, x, device)
@@ -382,11 +381,8 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     perm = torch.randperm(n_obs, generator=gen, device=device)
     count_row = gather_line("gather_rows, count stage by the sort permutation", obs, perm)
     err["gather_rows"] = max(err["gather_rows"], count_row["max_abs_err"])
-    ordered = torch.arange(n_obs, device=device)
-    gather_line("gather_rows, count stage by a sorted index", obs, ordered)
-    rows_per_thread_sweep(obs, ordered)
-    del ordered
-    rows_per_thread_sweep(obs, perm)
+    gather_line("gather_rows, count stage by a sorted index",
+                obs, torch.arange(n_obs, device=device))
     del obs
     # 32-byte rows, the packed observation rows of W = 3 and 4
     gather_line("gather_rows, 32-byte rows by the sort permutation", ri(2**31, (n_obs, 8)), perm)
@@ -433,22 +429,6 @@ def gather_line(what, table, idx) -> dict:
         f"{rec['random_floor_ms']:.4f} ms ({sector_bytes} bytes: a 32-byte sector per row read), "
         f"{rec['ms'] / rec['bound_ms']:.2f}x the bytes-once bound; {n / rec['ms'] / 1e6:.2f} G rows/s")
     return rec
-
-
-def rows_per_thread_sweep(table, idx) -> None:
-    """gather_rows' rows per thread, in turns around the wrapper's choice;
-    the variants: +256 no cache hints, +512 no grid stride."""
-    from tpu_debruijn_torch.kernels import gather as G
-
-    chosen, ms = G.ROWS_PER_THREAD, {}
-    order = [r + v for v in (0, 256, 512, 768) for r in (1, 4)]
-    for G.ROWS_PER_THREAD in order + order[::-1]:
-        t = time_ms(lambda: G.gather_rows(table, idx))
-        ms[G.ROWS_PER_THREAD] = min(t, ms.get(G.ROWS_PER_THREAD, t))
-    G.ROWS_PER_THREAD = chosen
-    log(f"phase 2: gather_rows ms by ROWS_PER_THREAD at ({table.shape[0]}, {table.shape[1]}), "
-        f"{str(idx.dtype)[6:]} index sorted={bool((idx[1:] >= idx[:-1]).all())} "
-        f"(wrapper: {chosen}): " + json.dumps(ms))
 
 
 def rank_round_ruler_level(gen, x, device) -> dict:
@@ -629,7 +609,9 @@ def check_assembly(table, nodes, graph, gfa_path: str, genome=None) -> None:
 
 
 def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
-    """The quick start on a read set of ``genome``; returns (info, reads, unitigs)."""
+    """The quick start on a read set of ``genome``; returns (info, reads,
+    unitigs, table).  gather_rows must launch in the count and compress
+    stages."""
     reads = sample_reads(rng, genome, COVERAGE, READ_LEN)
     n_obs = len(reads) * (READ_LEN - K + 1)
     fq = os.path.join(tmp, f"{name}.fq")
@@ -647,10 +629,22 @@ def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
         "coverage": COVERAGE, "k": K, "observations": n_obs, "table_kmers": len(table),
         "unitigs": len(nodes), "stage_s": stages, "total_s": sum(stages.values()),
         "count_obs_per_s": n_obs / stages["count"], "peak_device_bytes": peak,
-        "gather_rows_launches_by_stage": gathers,
+        "gather_rows_launches": gathers,
     }
     os.remove(fq)
-    return info, reads_in, nodes
+    return info, reads_in, nodes, table
+
+
+def resolve_edges_gathers(table) -> int:
+    """gather_rows launches of one resolve_edges call on ``table``."""
+    from tpu_debruijn_torch.compress import resolve_edges
+    from tpu_debruijn_torch.kernels import gather_rows
+
+    before = gather_rows.launches
+    resolve_edges(table.spec, table.stranded, table.kmers, table.exts)
+    launched = gather_rows.launches - before
+    check(launched > 0, "resolve_edges never launched gather_rows")
+    return launched
 
 
 def profile_device_ms(fn, top: int = 6) -> dict:
@@ -712,10 +706,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     check(len(nodes) == len(nodes_main) and all(
         np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nodes, nodes_main)
     ), "ordered-path unitigs != the quick start's")
-    before = counters["gather_rows"].launches
     edges = C.resolve_edges(table.spec, False, table.kmers, table.exts)
-    resolve_gathers = counters["gather_rows"].launches - before
-    check(resolve_gathers > 0, "resolve_edges never launched gather_rows")
     n_iv = int(C.discovery_intervals(edges["partner_l"], edges["partner_r"], table.data)[-1].sum())
     n = len(table)
 
@@ -739,7 +730,6 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
         "compress_s_plain": compress_s["plain"], "compress_device_ms": device_ms,
         "stage_s": dict(zip(("count_obs_min", "compress_ordered", "assemble"), np.diff(t).tolist())),
         "peak_device_bytes": peak, "launches": launches,
-        "resolve_edges_gather_rows_launches": resolve_gathers,
     }
 
 
@@ -905,9 +895,11 @@ def main(argv=None) -> int:
         for fn in counters.values():
             fn.launches = 0
         KN.rank_lists.round_path = 0
-        main, reads, nodes_main = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
+        main, reads, nodes_main, table = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
         by_path["quick_start"] = {name: fn.launches for name, fn in counters.items()}
         by_path["quick_start"]["rank_lists.round_path"] = KN.rank_lists.round_path
+        main["gather_rows_launches"]["resolve_edges"] = resolve_edges_gathers(table)
+        del table
         log("phase 3 (main path): " + json.dumps(main))
 
         # phase 4: the read-ordered path on the same reads
@@ -924,7 +916,7 @@ def main(argv=None) -> int:
             r["launches"] = sum(r["launches_by_path"].values())
 
         # phase 5
-        rich, _, _ = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True), tmp, False)
+        rich = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True), tmp, False)[0]
         log("phase 5 (repeat-rich): " + json.dumps(rich))
 
         # phase 6

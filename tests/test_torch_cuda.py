@@ -105,28 +105,14 @@ def test_gather_rows_kernel_matches_plain(cuda, c, dtype, idx_dtype):
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("words", [1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 128])
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, (1 << 20) + 3])
-def test_gather_rows_multi_row_kernel_matches_plain(cuda, n, words, idx_dtype):
-    """Ragged tiles of the rows-per-thread kernel (up to 8 words) and the
-    warp kernel (above), out-of-range indices clamped."""
+def test_gather_rows_row_widths_match_plain(cuda, n, words, idx_dtype):
+    """The thread-per-row kernel (up to 8 words, every vector width) and
+    the warp-per-row kernel (above) at ragged row counts, out-of-range
+    indices clamped."""
     rng = np.random.default_rng(words)
     m = 3001
     tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (m, words)).astype(np.int32)).to(cuda)
     idx = torch.from_numpy(rng.integers(-7, m + 7, n)).to(idx_dtype).to(cuda)
-    got = gather_rows(tab, idx)
-    torch.cuda.synchronize()
-    assert torch.equal(got, gather_rows_plain(tab, idx))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("words", [1, 4, 6, 8])
-@pytest.mark.parametrize("rows_per_thread", [1, 2, 4, 8])
-def test_gather_rows_each_rows_per_thread(cuda, monkeypatch, rows_per_thread, words):
-    from tpu_debruijn_torch.kernels import gather as G
-
-    monkeypatch.setattr(G, "ROWS_PER_THREAD", rows_per_thread)
-    rng = np.random.default_rng(rows_per_thread)
-    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (70_001, words)).astype(np.int32)).to(cuda)
-    idx = torch.from_numpy(rng.integers(-3, 70_004, 300_007)).to(cuda)
     got = gather_rows(tab, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, gather_rows_plain(tab, idx))

@@ -9,26 +9,18 @@
 // gather_rows carries the count stage's gathers (the valid-slot compaction
 // and the sort permutation over ~10^8 rows of 16 or 32 bytes) and the row
 // gathers of edge resolution.  Bound on the H100: device memory, but not
-// bytes-once: a random row of up to 32 bytes costs a whole 32-byte sector, so
-// the floor of a random gather is one sector read per row plus the index
-// and output streams.  What keeps a random gather from that floor is the
-// latency of the dependent pair index -> row, so the design keeps many rows
-// in flight:
-//   - rows of up to 8 words (32 bytes): ROWS rows per thread.  A block's tile
-//     is ROWS * blockDim consecutive output rows, thread t takes rows t,
-//     t + blockDim, ..., so a warp's index loads and output stores stay
-//     coalesced, and a thread issues all its table loads before its first
-//     store.  A row moves as one 16-byte vector (4 words), two (8 words), or
-//     as 8- or 4-byte vectors where its width needs them;
-//   - cache hints for a random gather: table rows through the non-coherent
-//     path without L1 allocation (a row is read once; an L1 line would hold
-//     the rest of its sector for nothing), indices and output as streaming
-//     (evict-first), so they do not push table lines out of the 50 MB L2
-//     where the table partly fits;
-//   - a grid of at most the blocks the SMs hold at once, walking the tiles
-//     (grid stride), with each row of the ragged last tile bounds-checked;
-//   - rows above 8 words: one warp per row, the lanes over consecutive
-//     vectors of the row, so the row is read in full sectors.
+// bytes-once: a random row of up to 32 bytes costs at least a whole 32-byte
+// sector, so the floor of a random gather is one sector read per row plus
+// the index and output streams.  One thread per row of up to 8 words (32
+// bytes), the row moved as one or two 16-byte vectors (or 8- and 4-byte
+// ones where its width needs them, the count chosen at compile time), and
+// one warp per wider row, its lanes over consecutive vectors of the row so
+// the row is read in full sectors.  On the card a random gather of 16-byte
+// rows runs at ~25-28 G rows/s whatever the table's size above the L2, and
+// none of these moved it (PERF.md): several rows in flight per thread,
+// non-allocating and streaming cache hints, a grid-stride launch (which
+// cost 1.5-6%).  A gather by a sorted index streams at 85-92% of the
+// bytes-once bound.
 //
 // take_along_axis: one thread per four elements of a row when the row width
 // is a multiple of 4 (one 16-byte index load and one 16-byte store, 32-bit
@@ -52,66 +44,17 @@ __device__ __forceinline__ int64_t clamp_idx(I j, int64_t n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
 }
 
-// streaming index loads (evict-first)
-__device__ __forceinline__ int32_t ld_idx(const int32_t* p) { return __ldcs(p); }
-__device__ __forceinline__ int64_t ld_idx(const int64_t* p) {
-  return (int64_t)__ldcs(reinterpret_cast<const long long*>(p));
-}
-
-// table loads: non-coherent path, no L1 allocation
-__device__ __forceinline__ int4 ld_row(const int4* p) {
-  int4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int2 ld_row(const int2* p) {
-  int2 v;
-  asm("ld.global.nc.L1::no_allocate.v2.s32 {%0, %1}, [%2];"
-      : "=r"(v.x), "=r"(v.y) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int ld_row(const int* p) {
-  int v;
-  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-
-// ROWS rows of NV vectors per thread per tile, tiles walked by grid stride.
-template <typename V, int NV, typename I, int ROWS, bool HINTS>
+// One thread per row of NV vectors.
+template <typename V, int NV, typename I>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_multi(const V* __restrict__ table, const I* __restrict__ idx,
-                  int64_t m, int64_t n, V* __restrict__ out) {
-  const int64_t tile = (int64_t)ROWS * kThreads;
-  for (int64_t base = (int64_t)blockIdx.x * tile + threadIdx.x; base < n;
-       base += (int64_t)gridDim.x * tile) {
-    int64_t r[ROWS];
+gather_rows_thread(const V* __restrict__ table, const I* __restrict__ idx,
+                   int64_t m, int64_t n, V* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const V* src = table + clamp_idx(idx[i], m) * NV;
+  V* dst = out + i * NV;
 #pragma unroll
-    for (int j = 0; j < ROWS; ++j) {
-      const int64_t i = base + j * kThreads;
-      r[j] = i < n ? clamp_idx(HINTS ? ld_idx(idx + i) : idx[i], m) : -1;
-    }
-    V buf[ROWS][NV];
-#pragma unroll
-    for (int j = 0; j < ROWS; ++j) {
-      if (r[j] >= 0) {
-        const V* src = table + r[j] * NV;
-#pragma unroll
-        for (int v = 0; v < NV; ++v) buf[j][v] = HINTS ? ld_row(src + v) : __ldg(src + v);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < ROWS; ++j) {
-      if (r[j] >= 0) {
-        V* dst = out + (base + j * kThreads) * NV;
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          if (HINTS) __stcs(dst + v, buf[j][v]);
-          else dst[v] = buf[j][v];
-        }
-      }
-    }
-  }
+  for (int v = 0; v < NV; ++v) dst[v] = __ldg(src + v);
 }
 
 // One warp per row; lane l copies vectors l, l + 32, ... of the row.
@@ -122,62 +65,19 @@ gather_rows_warp(const V* __restrict__ table, const I* __restrict__ idx,
   const int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
-  const int64_t r = clamp_idx(ld_idx(idx + i), m);
+  const int64_t r = clamp_idx(idx[i], m);
   const V* src = table + r * nv;
   V* dst = out + i * nv;
-  for (int v = lane; v < nv; v += 32) __stcs(dst + v, ld_row(src + v));
+  for (int v = lane; v < nv; v += 32) dst[v] = __ldg(src + v);
 }
 
-// Blocks of `kernel` the card holds at once; `cached` is the caller's
-// per-device memo.
-template <typename K>
-int64_t resident_blocks(K kernel, int* cached) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (!cached[dev]) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return cached[dev];
-}
-
-template <typename V, int NV, typename I, int ROWS, bool HINTS>
-int launch_multi(const void* table, const void* idx, int64_t m, int64_t n,
-                 bool persistent, void* out, cudaStream_t s) {
-  static int cached[64] = {0};  // one memo per instantiation
-  auto kernel = gather_rows_multi<V, NV, I, ROWS, HINTS>;
-  const int64_t tiles = (n + (int64_t)ROWS * kThreads - 1) / ((int64_t)ROWS * kThreads);
-  const int64_t cap = persistent ? resident_blocks(kernel, cached) : tiles;
-  if (cap <= 0) return (int)cudaErrorInvalidDevice;
-  const unsigned blocks = (unsigned)(tiles < cap ? tiles : cap);
-  kernel<<<blocks, kThreads, 0, s>>>((const V*)table, (const I*)idx, m, n, (V*)out);
-  return (int)cudaGetLastError();
-}
-
-template <typename V, int NV, typename I, bool HINTS>
-int launch_rows_h(const void* table, const void* idx, int64_t m, int64_t n,
-                  int rows_per_thread, bool persistent, void* out, cudaStream_t s) {
-  switch (rows_per_thread) {
-    case 1: return launch_multi<V, NV, I, 1, HINTS>(table, idx, m, n, persistent, out, s);
-    case 2: return launch_multi<V, NV, I, 2, HINTS>(table, idx, m, n, persistent, out, s);
-    case 4: return launch_multi<V, NV, I, 4, HINTS>(table, idx, m, n, persistent, out, s);
-    case 8: return launch_multi<V, NV, I, 8, HINTS>(table, idx, m, n, persistent, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// rows_per_thread carries the variant: bit 8 drops the cache hints, bit 9
-// the grid stride (one tile per block)
 template <typename V, int NV, typename I>
-int launch_rows(const void* table, const void* idx, int64_t m, int64_t n,
-                int rows_per_thread, void* out, cudaStream_t s) {
-  const int rpt = rows_per_thread & 0xFF;
-  const bool persistent = !(rows_per_thread & 0x200);
-  if (rows_per_thread & 0x100)
-    return launch_rows_h<V, NV, I, false>(table, idx, m, n, rpt, persistent, out, s);
-  return launch_rows_h<V, NV, I, true>(table, idx, m, n, rpt, persistent, out, s);
+int launch_thread(const void* table, const void* idx, int64_t m, int64_t n,
+                  void* out, cudaStream_t s) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  gather_rows_thread<V, NV, I><<<(unsigned)blocks, kThreads, 0, s>>>(
+      (const V*)table, (const I*)idx, m, n, (V*)out);
+  return (int)cudaGetLastError();
 }
 
 template <typename V, typename I>
@@ -191,17 +91,16 @@ int launch_warp(const void* table, const void* idx, int64_t m, int64_t n,
 
 template <typename I>
 int gather_rows_idx(const void* table, const void* idx, int64_t m, int64_t n,
-                    int words, int rows_per_thread, void* out, cudaStream_t s) {
-  const int rpt = rows_per_thread;
+                    int words, void* out, cudaStream_t s) {
   switch (words) {  // the widest vector that divides the row
-    case 1: return launch_rows<int, 1, I>(table, idx, m, n, rpt, out, s);
-    case 2: return launch_rows<int2, 1, I>(table, idx, m, n, rpt, out, s);
-    case 3: return launch_rows<int, 3, I>(table, idx, m, n, rpt, out, s);
-    case 4: return launch_rows<int4, 1, I>(table, idx, m, n, rpt, out, s);
-    case 5: return launch_rows<int, 5, I>(table, idx, m, n, rpt, out, s);
-    case 6: return launch_rows<int2, 3, I>(table, idx, m, n, rpt, out, s);
-    case 7: return launch_rows<int, 7, I>(table, idx, m, n, rpt, out, s);
-    case 8: return launch_rows<int4, 2, I>(table, idx, m, n, rpt, out, s);
+    case 1: return launch_thread<int, 1, I>(table, idx, m, n, out, s);
+    case 2: return launch_thread<int2, 1, I>(table, idx, m, n, out, s);
+    case 3: return launch_thread<int, 3, I>(table, idx, m, n, out, s);
+    case 4: return launch_thread<int4, 1, I>(table, idx, m, n, out, s);
+    case 5: return launch_thread<int, 5, I>(table, idx, m, n, out, s);
+    case 6: return launch_thread<int2, 3, I>(table, idx, m, n, out, s);
+    case 7: return launch_thread<int, 7, I>(table, idx, m, n, out, s);
+    case 8: return launch_thread<int4, 2, I>(table, idx, m, n, out, s);
     default: break;
   }
   if (words % 4 == 0) return launch_warp<int4, I>(table, idx, m, n, words / 4, out, s);
@@ -222,11 +121,11 @@ take_along_axis_vec4(const int32_t* __restrict__ tab, const I* __restrict__ idx,
   const uint32_t e = row * l + col;
   int64_t j[4];
   if constexpr (sizeof(I) == 4) {
-    const int4 v = __ldcs(reinterpret_cast<const int4*>(idx + e));
+    const int4 v = *reinterpret_cast<const int4*>(idx + e);
     j[0] = v.x; j[1] = v.y; j[2] = v.z; j[3] = v.w;
   } else {
-    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(idx + e));
-    const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(idx + e) + 1);
+    const longlong2 a = reinterpret_cast<const longlong2*>(idx + e)[0];
+    const longlong2 b = reinterpret_cast<const longlong2*>(idx + e)[1];
     j[0] = a.x; j[1] = a.y; j[2] = b.x; j[3] = b.y;
   }
   int32_t o[4];
@@ -236,7 +135,7 @@ take_along_axis_vec4(const int32_t* __restrict__ tab, const I* __restrict__ idx,
                                    : row * l + (uint32_t)clamp_idx(j[t], l);
     o[t] = __ldg(tab + src);
   }
-  __stcs(reinterpret_cast<int4*>(out + e), make_int4(o[0], o[1], o[2], o[3]));
+  *reinterpret_cast<int4*>(out + e) = make_int4(o[0], o[1], o[2], o[3]);
 }
 
 // One element per thread; index math in T (uint32_t below 2^31 elements).
@@ -247,9 +146,9 @@ take_along_axis_scalar(const int32_t* __restrict__ tab, const I* __restrict__ id
   const T i = (T)blockIdx.x * kThreads + threadIdx.x;
   if (i >= r * l) return;
   const T row = i / l, col = i - row * l;
-  const T src = axis == 0 ? (T)clamp_idx(ld_idx(idx + i), (int64_t)r) * l + col
-                          : row * l + (T)clamp_idx(ld_idx(idx + i), (int64_t)l);
-  __stcs(out + i, __ldg(tab + src));
+  const T src = axis == 0 ? (T)clamp_idx(idx[i], (int64_t)r) * l + col
+                          : row * l + (T)clamp_idx(idx[i], (int64_t)l);
+  out[i] = __ldg(tab + src);
 }
 
 template <typename I>
@@ -276,21 +175,19 @@ int take_along_axis_idx(const void* tab, const void* idx, int64_t r, int64_t l,
 }  // namespace
 
 // table: (m, words) 4-byte words, 16-byte aligned; idx: (n,) int32 or int64;
-// out: (n, words).  rows_per_thread (1, 2, 4 or 8) applies to rows of up to
-// 8 words.
+// out: (n, words).
 extern "C" int tdb_gather_rows(const void* table, const void* idx, int64_t m,
-                               int64_t n, int words, int idx_is_64,
-                               int rows_per_thread, void* out, void* stream) {
+                               int64_t n, int words, int idx_is_64, void* out,
+                               void* stream) {
   if (n == 0) return 0;
   if (m <= 0 || words <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return idx_is_64
-      ? gather_rows_idx<int64_t>(table, idx, m, n, words, rows_per_thread, out, s)
-      : gather_rows_idx<int32_t>(table, idx, m, n, words, rows_per_thread, out, s);
+  return idx_is_64 ? gather_rows_idx<int64_t>(table, idx, m, n, words, out, s)
+                   : gather_rows_idx<int32_t>(table, idx, m, n, words, out, s);
 }
 
-// tab, idx, out: (r, l) row-major, 16-byte aligned; out[i, j] = tab[idx[i, j], j]
-// (axis 0) or tab[i, idx[i, j]] (axis 1).
+// tab, idx, out: (r, l) row-major, idx and out 16-byte aligned;
+// out[i, j] = tab[idx[i, j], j] (axis 0) or tab[i, idx[i, j]] (axis 1).
 extern "C" int tdb_take_along_axis(const void* tab, const void* idx, int64_t r,
                                    int64_t l, int axis, int idx_is_64,
                                    void* out, void* stream) {

@@ -184,14 +184,17 @@ def count_kmers(
         data = S.segment_min(srows[:, w + 1], run, starts.shape[0])
     else:
         data = urows[:, w + 1]
-    keep = counts >= min_obs
+    kept = (ukmers, or_exts, counts, data)
+    if min_obs > 1:  # every kmer was observed at least once
+        keep = torch.nonzero(counts >= min_obs).flatten()
+        kept = [gather_rows(t, keep) for t in kept]
     return KmerTable(
         spec=spec,
         stranded=stranded,
-        kmers=ukmers[keep],
-        exts=or_exts[keep],
-        counts=counts[keep],
-        data=data[keep],
+        kmers=kept[0],
+        exts=kept[1],
+        counts=kept[2],
+        data=kept[3].contiguous(),
         all_kmers=ukmers if report_all else None,
     )
 

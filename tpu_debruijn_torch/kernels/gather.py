@@ -5,9 +5,10 @@ gather probes, which asked whether a TPU kernel could gather per lane from
 a table held in on-chip memory (``scripts/probe_pallas_gather.py`` ``k1``,
 ``k2``, ``k3``; ``scripts/probe_pallas_gather2.py`` ``k_v1`` … ``k_v4``;
 ``scripts/probe_pallas_gather3.py`` ``k1``, ``k2``).  On the H100 a thread
-loads from any address, so each gather is one pass bound by the latency of
-its random reads: :func:`gather_rows` keeps ``ROWS_PER_THREAD`` rows of up
-to 32 bytes in flight per thread, and moves wider rows with one warp each.
+loads from any address, so each gather is one pass bound by its random
+reads (a whole 32-byte sector per row of up to 32 bytes): :func:`gather_rows`
+moves such a row with one thread and 16-byte loads, and a wider row with
+one warp.
 
 :func:`gather_rows` carries the main path's row gathers on a CUDA tensor:
 the count stage's valid-slot compaction and sort-permutation gathers of
@@ -32,20 +33,12 @@ import torch
 
 from tpu_debruijn_torch.kernels import _build
 
-# (table, idx, m, n, words, idx_is_64, rows_per_thread, out, stream)
-_ROWS_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-]
-# (tab, idx, r, l, axis, idx_is_64, out, stream)
-_TAKE_ARGTYPES = [
+# both entry points: (table, idx, int64, int64, int, idx_is_64, out, stream)
+_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 ]
 _INDEX_TYPES = (torch.int32, torch.int64)
-# rows of up to 8 words each thread keeps in flight (1, 2, 4 or 8), chosen
-# on the H100: PERF.md
-ROWS_PER_THREAD = 4
 
 
 def _check_index(name: str, idx: torch.Tensor, device) -> None:
@@ -64,13 +57,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Row ``i`` of the result is row ``idx[i]`` of ``table``; an index outside
     [0, M) is clamped into it.  A 1-D (M,) table gives (N,).
     """
-    dev = table.device
-    if dev.type != "cuda":
-        if dev.type == "cpu":
+    if not table.is_cuda:
+        if table.is_cpu:
             return gather_rows_plain(table, idx)
-        raise ValueError(f"gather_rows: no kernel for device {dev}")
+        raise ValueError(f"gather_rows: no kernel for device {table.device}")
+    dev = table.device
     shape = table.shape
-    if table.dtype not in _INDEX_TYPES or len(shape) not in (1, 2):
+    if table.dtype not in (torch.int32, torch.int64) or len(shape) not in (1, 2):
         raise ValueError("gather_rows: table must be (M,) or (M, C), int32 or int64")
     _check_index("gather_rows", idx, dev)
     if idx.dim() != 1:
@@ -88,10 +81,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         table = table.clone()
         table_ptr = table.data_ptr()
     idx = idx.contiguous()
-    fn = _build.library().function("tdb_gather_rows", _ROWS_ARGTYPES)
+    fn = _build.library().function("tdb_gather_rows", _ARGTYPES)
     _build.check("tdb_gather_rows", fn(
         table_ptr, idx.data_ptr(), m, n, c * table.element_size() // 4,
-        idx.dtype == torch.int64, ROWS_PER_THREAD, out.data_ptr(), _build.stream_ptr(dev),
+        idx.dtype == torch.int64, out.data_ptr(), _build.stream_ptr(dev),
     ))
     gather_rows.launches += 1
     return out
@@ -112,14 +105,15 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
     for axis 1 (``jnp.take_along_axis``); an index outside the axis is
     clamped into it.
     """
-    if axis != 0 and axis != 1:
+    if axis not in (0, 1):
         raise ValueError(f"take_along_axis: axis must be 0 or 1, not {axis}")
-    dev = tab.device
-    if dev.type != "cuda":
-        if dev.type == "cpu":
+    if not tab.is_cuda:
+        if tab.is_cpu:
             return take_along_axis_plain(tab, idx, axis)
-        raise ValueError(f"take_along_axis: no kernel for device {dev}")
-    # few tensor attribute reads: at the probes' sizes the host path is the cost
+        raise ValueError(f"take_along_axis: no kernel for device {tab.device}")
+    # at the probes' sizes the host path is the cost: few tensor calls, and
+    # empty_like, which parses its arguments faster than empty
+    dev = tab.device
     shape = tab.shape
     if tab.dtype != torch.int32 or len(shape) != 2:
         raise ValueError("take_along_axis: table must be (R, L) int32")
@@ -127,16 +121,16 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
     if idx.shape != shape:
         raise ValueError("take_along_axis: indices must have the table's shape")
     r, l = shape
-    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    tab = tab.contiguous()
+    out = torch.empty_like(tab)
     if r * l == 0:
         return out
-    tab = tab.contiguous()
     idx = idx.contiguous()
     idx_ptr = idx.data_ptr()
     if idx_ptr % 16:  # the kernel reads indices with 16-byte loads
         idx = idx.clone()
         idx_ptr = idx.data_ptr()
-    fn = _build.library().function("tdb_take_along_axis", _TAKE_ARGTYPES)
+    fn = _build.library().function("tdb_take_along_axis", _ARGTYPES)
     _build.check("tdb_take_along_axis", fn(
         tab.data_ptr(), idx_ptr, r, l, axis, idx.dtype == torch.int64,
         out.data_ptr(), _build.stream_ptr(dev),

@@ -124,7 +124,7 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
         idx = torch.searchsorted(skey, qkey)
         found = (idx < n) & (gather_rows(skey, idx) == qkey)
         return idx, found
-    sorted_limbs = sorted_limbs.contiguous()
+    sorted_limbs = sorted_limbs.contiguous()  # once, not per gather
     lo = torch.zeros(m, dtype=torch.int64, device=dev)
     hi = torch.full((m,), n, dtype=torch.int64, device=dev)
     for _ in range(max(1, math.ceil(math.log2(n + 1)))):
