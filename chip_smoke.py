@@ -456,9 +456,12 @@ def rank_round_ruler_level(gen, x, device) -> dict:
 
 def host_launch_costs(tab2, idx_rows, rows64, calls: int = 1000) -> None:
     """Host time per call (us) of take_along_axis and torch.gather, each
-    over ``calls`` launches with no synchronize in between, in turns; and of
-    the two ways to get the current stream's pointer."""
-    from tpu_debruijn_torch.kernels import take_along_axis
+    over ``calls`` launches with no synchronize in between, in turns; of the
+    bare ctypes call into the kernel's entry point with no element (it
+    returns before any launch); and of two ways to get the current stream's
+    pointer (the port uses the public one)."""
+    from tpu_debruijn_torch.kernels import _build, take_along_axis
+    from tpu_debruijn_torch.kernels.gather import _ARGTYPES
 
     def per_call(fn):
         fn()
@@ -471,8 +474,12 @@ def host_launch_costs(tab2, idx_rows, rows64, calls: int = 1000) -> None:
         return dt / calls * 1e6
 
     dev = tab2.device
+    entry = _build.library().function("tdb_take_along_axis", _ARGTYPES)
+    out, stream = torch.empty_like(tab2), torch.cuda.current_stream(dev).cuda_stream
     fns = {
         "take_along_axis": lambda: take_along_axis(tab2, idx_rows, 0),
+        "ctypes call, no element": lambda: _build.check("tdb_take_along_axis", entry(
+            tab2.data_ptr(), idx_rows.data_ptr(), 0, tab2.shape[1], 0, 0, out.data_ptr(), stream)),
         "torch.gather": lambda: torch.gather(tab2, 0, rows64),
         "current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),

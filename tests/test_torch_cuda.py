@@ -123,7 +123,7 @@ def test_gather_rows_row_widths_match_plain(cuda, n, words, idx_dtype):
 @pytest.mark.parametrize("shape", [(33, 7), (5, 3001), (1, 1), (3, 5)])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_take_along_axis_ragged_shapes(cuda, axis, shape, idx_dtype):
-    """Element counts that are not a multiple of 4 (the one-element path)."""
+    """Element counts that are not a multiple of 4."""
     rng = np.random.default_rng(7)
     tab = torch.from_numpy(rng.integers(0, 2**31, shape).astype(np.int32)).to(cuda)
     idx = torch.from_numpy(rng.integers(-3, shape[axis] + 3, shape)).to(idx_dtype).to(cuda)
@@ -137,8 +137,7 @@ def test_take_along_axis_ragged_shapes(cuda, axis, shape, idx_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis", [0, 1])
 def test_take_along_axis_unaligned_indices(cuda, axis):
-    """A row width that is a multiple of 4 (the four-element path) with the
-    indices a view that does not start on 16 bytes."""
+    """Indices that are a view not starting on 16 bytes."""
     rng = np.random.default_rng(8)
     r, l = 7, 12
     tab = torch.from_numpy(rng.integers(0, 2**31, (r, l)).astype(np.int32)).to(cuda)

@@ -22,11 +22,9 @@
 // cost 1.5-6%).  A gather by a sorted index streams at 85-92% of the
 // bytes-once bound.
 //
-// take_along_axis: one thread per four elements of a row when the row width
-// is a multiple of 4 (one 16-byte index load and one 16-byte store, 32-bit
-// index math), one per element otherwise; 64-bit math only when the table
-// has 2^31 elements or more.  At the probes' (2048, 128) it is bound by the
-// host's launch path, not by the card.
+// take_along_axis: one thread per element, 32-bit index math (the table
+// has fewer than 2^31 elements; the entry point refuses more).  At the
+// probes' (2048, 128) it is bound by the host's launch path, not by the card.
 //
 // Indices are int32 or int64.  An index outside [0, rows) is clamped into it,
 // as the plain versions do.
@@ -108,68 +106,17 @@ int gather_rows_idx(const void* table, const void* idx, int64_t m, int64_t n,
   return launch_warp<int, I>(table, idx, m, n, words, out, s);
 }
 
-// Four elements of one row per thread; the row width is a multiple of 4.
+// One element per thread.
 template <typename I>
 __global__ void __launch_bounds__(kThreads)
-take_along_axis_vec4(const int32_t* __restrict__ tab, const I* __restrict__ idx,
-                     uint32_t r, uint32_t l, int axis, int32_t* __restrict__ out) {
-  const uint32_t g = blockIdx.x * kThreads + threadIdx.x;  // group of 4
-  const uint32_t quads = l / 4;
-  if (g >= r * quads) return;
-  const uint32_t row = g / quads;
-  const uint32_t col = (g - row * quads) * 4;
-  const uint32_t e = row * l + col;
-  int64_t j[4];
-  if constexpr (sizeof(I) == 4) {
-    const int4 v = *reinterpret_cast<const int4*>(idx + e);
-    j[0] = v.x; j[1] = v.y; j[2] = v.z; j[3] = v.w;
-  } else {
-    const longlong2 a = reinterpret_cast<const longlong2*>(idx + e)[0];
-    const longlong2 b = reinterpret_cast<const longlong2*>(idx + e)[1];
-    j[0] = a.x; j[1] = a.y; j[2] = b.x; j[3] = b.y;
-  }
-  int32_t o[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const uint32_t src = axis == 0 ? (uint32_t)clamp_idx(j[t], r) * l + col + t
-                                   : row * l + (uint32_t)clamp_idx(j[t], l);
-    o[t] = __ldg(tab + src);
-  }
-  *reinterpret_cast<int4*>(out + e) = make_int4(o[0], o[1], o[2], o[3]);
-}
-
-// One element per thread; index math in T (uint32_t below 2^31 elements).
-template <typename I, typename T>
-__global__ void __launch_bounds__(kThreads)
-take_along_axis_scalar(const int32_t* __restrict__ tab, const I* __restrict__ idx,
-                       T r, T l, int axis, int32_t* __restrict__ out) {
-  const T i = (T)blockIdx.x * kThreads + threadIdx.x;
+take_along_axis_kernel(const int32_t* __restrict__ tab, const I* __restrict__ idx,
+                       uint32_t r, uint32_t l, int axis, int32_t* __restrict__ out) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= r * l) return;
-  const T row = i / l, col = i - row * l;
-  const T src = axis == 0 ? (T)clamp_idx(idx[i], (int64_t)r) * l + col
-                          : row * l + (T)clamp_idx(idx[i], (int64_t)l);
+  const uint32_t row = i / l, col = i - row * l;
+  const uint32_t src = axis == 0 ? (uint32_t)clamp_idx(idx[i], r) * l + col
+                                 : row * l + (uint32_t)clamp_idx(idx[i], l);
   out[i] = __ldg(tab + src);
-}
-
-template <typename I>
-int take_along_axis_idx(const void* tab, const void* idx, int64_t r, int64_t l,
-                        int axis, void* out, cudaStream_t s) {
-  const int64_t n = r * l;
-  const int32_t* t = (const int32_t*)tab;
-  const I* ix = (const I*)idx;
-  int32_t* o = (int32_t*)out;
-  if (n < (1LL << 31) && l % 4 == 0) {
-    const unsigned blocks = (unsigned)((n / 4 + kThreads - 1) / kThreads);
-    take_along_axis_vec4<I><<<blocks, kThreads, 0, s>>>(t, ix, (uint32_t)r, (uint32_t)l, axis, o);
-  } else if (n < (1LL << 31)) {
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    take_along_axis_scalar<I, uint32_t><<<blocks, kThreads, 0, s>>>(
-        t, ix, (uint32_t)r, (uint32_t)l, axis, o);
-  } else {
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    take_along_axis_scalar<I, int64_t><<<blocks, kThreads, 0, s>>>(t, ix, r, l, axis, o);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -186,14 +133,21 @@ extern "C" int tdb_gather_rows(const void* table, const void* idx, int64_t m,
                    : gather_rows_idx<int32_t>(table, idx, m, n, words, out, s);
 }
 
-// tab, idx, out: (r, l) row-major, idx and out 16-byte aligned;
+// tab, idx, out: (r, l) row-major, r * l < 2^31;
 // out[i, j] = tab[idx[i, j], j] (axis 0) or tab[i, idx[i, j]] (axis 1).
 extern "C" int tdb_take_along_axis(const void* tab, const void* idx, int64_t r,
                                    int64_t l, int axis, int idx_is_64,
                                    void* out, void* stream) {
-  if (r * l == 0) return 0;
-  if (axis != 0 && axis != 1) return (int)cudaErrorInvalidValue;
+  const int64_t n = r * l;
+  if (n == 0) return 0;
+  if ((axis != 0 && axis != 1) || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return idx_is_64 ? take_along_axis_idx<int64_t>(tab, idx, r, l, axis, out, s)
-                   : take_along_axis_idx<int32_t>(tab, idx, r, l, axis, out, s);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (idx_is_64)
+    take_along_axis_kernel<int64_t><<<blocks, kThreads, 0, s>>>(
+        (const int32_t*)tab, (const int64_t*)idx, (uint32_t)r, (uint32_t)l, axis, (int32_t*)out);
+  else
+    take_along_axis_kernel<int32_t><<<blocks, kThreads, 0, s>>>(
+        (const int32_t*)tab, (const int32_t*)idx, (uint32_t)r, (uint32_t)l, axis, (int32_t*)out);
+  return (int)cudaGetLastError();
 }

@@ -128,11 +128,4 @@ def check(name: str, code: int) -> None:
 
 
 def stream_ptr(device) -> int:
-    """The current CUDA stream of ``device`` (a tensor's device: its index
-    is set), as an integer for a C entry point.
-
-    PyTorch's public API gives the stream only as a Stream object, which
-    costs 3-5 us to build per launch on the H100's host (PERF.md);
-    the raw getter is the one PyTorch's own generated code (inductor)
-    launches with."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream

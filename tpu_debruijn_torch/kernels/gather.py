@@ -111,29 +111,23 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
         if tab.is_cpu:
             return take_along_axis_plain(tab, idx, axis)
         raise ValueError(f"take_along_axis: no kernel for device {tab.device}")
-    # at the probes' sizes the host path is the cost: few tensor calls, and
-    # empty_like, which parses its arguments faster than empty
-    dev = tab.device
-    shape = tab.shape
-    if tab.dtype != torch.int32 or len(shape) != 2:
+    if tab.dtype != torch.int32 or tab.dim() != 2:
         raise ValueError("take_along_axis: table must be (R, L) int32")
-    _check_index("take_along_axis", idx, dev)
-    if idx.shape != shape:
+    _check_index("take_along_axis", idx, tab.device)
+    if idx.shape != tab.shape:
         raise ValueError("take_along_axis: indices must have the table's shape")
-    r, l = shape
+    r, l = tab.shape
+    if r * l >= 1 << 31:
+        raise ValueError("take_along_axis: the kernel takes fewer than 2^31 elements")
     tab = tab.contiguous()
     out = torch.empty_like(tab)
     if r * l == 0:
         return out
     idx = idx.contiguous()
-    idx_ptr = idx.data_ptr()
-    if idx_ptr % 16:  # the kernel reads indices with 16-byte loads
-        idx = idx.clone()
-        idx_ptr = idx.data_ptr()
     fn = _build.library().function("tdb_take_along_axis", _ARGTYPES)
     _build.check("tdb_take_along_axis", fn(
-        tab.data_ptr(), idx_ptr, r, l, axis, idx.dtype == torch.int64,
-        out.data_ptr(), _build.stream_ptr(dev),
+        tab.data_ptr(), idx.data_ptr(), r, l, axis, idx.dtype == torch.int64,
+        out.data_ptr(), _build.stream_ptr(tab.device),
     ))
     take_along_axis.launches += 1
     return out
