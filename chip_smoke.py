@@ -22,16 +22,23 @@ Phases; any failure raises and the script exits non-zero:
    (111.4M, 4) observation rows by a random permutation and by a sorted
    index, and 32-byte rows by the permutation, each beside its bytes-once
    bound and the random-gather floor (a 32-byte sector per row).
-   rank_round at the ruler level of that carry (the shape rank_lists
-   launches it at) and on the whole carry.  The whole ranking (rank_lists, the ruling set)
-   against the plain doubling loop on that carry, a list forest and an
-   input with cycles: exact where a path ends, the cycle contract on
-   cycles; timed against the rank_round loop.
+   successor_walk's two kernels (the cluster kernel at 2^18 entries, the L2
+   kernel at 2^21, through the wrapper's choice by size; both at 2^18 in
+   turns) and rank_loop at the ruler level of that carry (the shape
+   rank_lists launches it at, with the count of rounds the card ran), each
+   also with its device time under torch.profiler and its latency floor
+   (dependent loads and, for rank_loop, grid barriers, measured on the
+   card).  The whole ranking (rank_lists, the ruling set) against the plain
+   doubling loop on that carry, a list forest and an input with cycles:
+   exact where a path ends, the cycle contract on cycles; the round path on
+   an in-tree of that carry, exact, in one rank_loop launch; timed against
+   the one-launch doubling loop.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
-   rank_lists and rank_round launched, gather_rows in the count and
+   rank_lists and rank_loop launched (one rank_loop per ranking; its rounds
+   are read from the device count), gather_rows in the count and
    compress stages and in resolve_edges (called once more on the table
    after the counts are read), rank_lists never took its round path, the
    table lies on the card, every table kmer is in exactly one unitig, every
@@ -42,7 +49,8 @@ Phases; any failure raises and the script exits non-zero:
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
    to the plain linker's on the same table, unitigs equal to phase 3's,
    the same kernels launched as in phase 3; prints the interval count, the
-   rank_round launches and the compress seconds of both linkers.
+   rounds of each linker's rank_loop and the compress seconds of both
+   linkers.
 5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
    checks as phase 3 but the substring one.
 6. The CUDA path against the CPU path on a small input: identical tables,
@@ -277,10 +285,10 @@ def successor_forest(gen, m: int, mean_len: int, device, cyclic: bool = False) -
 
 def phase_pointer_kernels(gen, n_states: int, device) -> list:
     """The gather and pointer-jump kernels against their plain versions: at
-    the Pallas probes' shapes, and gather_rows, rank_round and rank_lists
+    the Pallas probes' shapes, and gather_rows, rank_loop and rank_lists
     also at the main path's (n_states, 4) carry."""
     from tpu_debruijn_torch.kernels import (
-        gather_rows, gather_rows_plain, rank_lists, rank_lists_plain, rank_round, rank_round_plain,
+        gather_rows, gather_rows_plain, rank_lists, rank_lists_plain, rank_loop, rank_round_plain,
         successor_walk, successor_walk_plain, take_along_axis, take_along_axis_plain,
     )
 
@@ -300,7 +308,7 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     rows64, lanes64 = idx_rows.long(), idx_lanes.long()
     # probe_pallas_gather.py:102-104: about 1% terminal
     succ = torch.where(torch.rand(m, generator=gen, device=device) < 0.99, ri(m, (m,)), -1).to(torch.int32)
-    err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_round": 0,
+    err = {"gather_rows": 0, "take_along_axis": 0, "successor_walk": 0, "rank_loop": 0,
            "rank_lists": 0}
     # each probe's form: (probe, kernel, kernel call, plain call, the one
     # PyTorch call computing the same function, or why there is none)
@@ -311,9 +319,6 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
         ("P3 (2^18, 4) int32", "gather_rows",
          lambda: gather_rows(tab4, idx), lambda: gather_rows_plain(tab4, idx),
          lambda: torch.index_select(tab4, 0, idx)),
-        ("P4 (2^18,) int32, 18 hops", "successor_walk",
-         lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
-         "none: no one PyTorch call walks successors"),
         ("V1 (2048, 128) axis 0", "take_along_axis",
          lambda: take_along_axis(tab2, idx_rows, 0), lambda: take_along_axis_plain(tab2, idx_rows, 0),
          lambda: torch.gather(tab2, 0, rows64)),
@@ -358,19 +363,19 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
     ], dim=1).to(torch.int32)
     gidx = torch.randint(0, n_states, (n_states,), generator=gen, device=device)
     gather_line("gather_rows, chain-linking carry", x, gidx)
-    spare = torch.empty_like(x)
-    err["rank_round"] = exact("rank_round main shape", rank_round(x, out=spare), rank_round_plain(x))
+    one_round = lambda: rank_loop(x, 1, early_exit=False)[0]
+    err["rank_loop"] = exact("one rank_loop round, main shape", one_round(), rank_round_plain(x)[0])
     err["rank_lists"] = phase_ranking(gen, x, device)
     shape_main = f"({n_states}, 4) int32"
     carry_bytes = 2 * nbytes(x)
-    ms, plain_ms, _ = time_pair(lambda: rank_round(x, out=spare), lambda: rank_round_plain(x))
-    log(f"phase 2: rank_round on the whole carry {shape_main}: kernel {ms:.4f} ms, "
+    ms, plain_ms, _ = time_pair(one_round, lambda: rank_round_plain(x))
+    log(f"phase 2: one rank_loop round on the whole carry {shape_main}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {carry_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    rank_row = rank_round_ruler_level(gen, x, device)
+    rank_row = rank_loop_ruler_level(gen, x, device)
     rank_list_row = kernel_row("rank_lists", "list_rank.cu", "tpu_debruijn/compress.py:277",
                                lambda: rank_lists(x), lambda: rank_lists_plain(x),
                                err["rank_lists"], shape_main + ", two lists", carry_bytes)
-    del x, gidx, spare, s0
+    del x, gidx, s0
     torch.cuda.empty_cache()
 
     # the count stage's gathers: one packed 16-byte row per observation of
@@ -396,10 +401,8 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
                    lambda: take_along_axis_plain(tab2, idx_rows, 0),
                    err["take_along_axis"], f"({r}, {l}) int32, axis 0", nbytes(tab2, idx_rows, tab2),
                    library=lambda: torch.gather(tab2, 0, rows64)),
-        kernel_row("successor_walk", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
-                   lambda: successor_walk(succ, 18), lambda: successor_walk_plain(succ, 18),
-                   err["successor_walk"], f"({m},) int32, 18 hops", 2 * nbytes(succ)),
-        {**rank_row, "max_abs_err": max(rank_row["max_abs_err"], err["rank_round"])},
+        *walk_rows(gen, succ, device),
+        {**rank_row, "max_abs_err": max(rank_row["max_abs_err"], err["rank_loop"])},
         rank_list_row,
     ]
     return rows
@@ -431,11 +434,107 @@ def gather_line(what, table, idx) -> dict:
     return rec
 
 
-def rank_round_ruler_level(gen, x, device) -> dict:
-    """rank_round at the shape rank_lists gives it on the main carry: the
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Device time (ms) of ``kernel`` per call of ``fn``, under
+    torch.profiler over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CPU and kernel in e.key)
+    check(us > 0, f"no device time for {kernel} under the profiler")
+    return us / 1e3 / reps
+
+
+def latency_floor_ms(m: int, rounds: int, barrier: bool) -> float:
+    """Device ms of csrc/pointer_jump.cu's latency_floor_kernel on
+    rank_loop's grid for m rows: ``rounds`` dependent L2 loads per thread,
+    each followed by a grid barrier when ``barrier``."""
+    import ctypes
+
+    from tpu_debruijn_torch.kernels import _build
+
+    fn = _build.library().function("tdb_latency_floor", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    chain = torch.zeros(2, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms(lambda: _build.check("tdb_latency_floor", fn(
+        chain.data_ptr(), m, rounds, int(barrier), chain[1:].data_ptr(), stream)),
+        "latency_floor_kernel")
+
+
+def walk_rows(gen, succ, device) -> list:
+    """successor_walk's two kernels against the plain walk, 18 hops over
+    successors with about 1% terminal (probe_pallas_gather.py:102-104): the
+    cluster kernel at the probe's 2^18 entries and the L2 kernel at 2^21,
+    through the wrapper's choice by size; then both kernels at 2^18 in
+    turns.  Each row has its device time under the profiler and its latency
+    floor: 18 hops of the kernel's load (a dependent L2 load, measured with
+    latency_floor_kernel; a distributed-shared-memory load, measured with
+    the cluster kernel walking a 32-state cycle that changes block every
+    hop), plus, for the cluster kernel, its table copy (the kernel at 0
+    hops)."""
+    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+
+    hops, long = 18, 8192
+    n = 1 << 21
+    big = torch.where(torch.rand(n, generator=gen, device=device) < 0.99,
+                      torch.randint(0, n, (n,), generator=gen, device=device), -1).to(torch.int32)
+    l2_hop = (latency_floor_ms(1, long, False) - latency_floor_ms(1, 0, False)) / long
+    cycle = ((torch.arange(32, device=device) + 4) % 32).to(torch.int32)
+    cluster_kernel = "successor_walk_cluster_kernel"
+    dsmem_hop = (device_ms(lambda: PJ.successor_walk(cycle, long), cluster_kernel)
+                 - device_ms(lambda: PJ.successor_walk(cycle, 0), cluster_kernel)) / long
+    log(f"phase 2: one dependent load: L2 {l2_hop * 1e6:.1f} ns, distributed shared memory "
+        f"{dsmem_hop * 1e6:.1f} ns (one thread's chain of {long} hops)")
+    rows = []
+    for name, table, kernel in (("successor_walk_cluster", succ, cluster_kernel),
+                                ("successor_walk", big, "successor_walk_kernel")):
+        counts = (PJ.successor_walk.launches, PJ.successor_walk.cluster_launches)
+        got = PJ.successor_walk(table, hops)
+        cluster = name == "successor_walk_cluster"
+        check((PJ.successor_walk.launches, PJ.successor_walk.cluster_launches)
+              == (counts[0] + (not cluster), counts[1] + cluster),
+              f"successor_walk at {table.shape[0]} entries did not take its {name} kernel")
+        e = max_abs_diff((got,), (PJ.successor_walk_plain(table, hops),))
+        check(e == 0, f"{name}: kernel != plain (max abs err {e})")
+        row = kernel_row(name, "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
+                         lambda: PJ.successor_walk(table, hops),
+                         lambda: PJ.successor_walk_plain(table, hops),
+                         e, f"({table.shape[0]},) int32, {hops} hops", 2 * nbytes(table))
+        row["device_ms"] = device_ms(lambda: PJ.successor_walk(table, hops), kernel)
+        row["floor_ms"] = hops * (dsmem_hop if cluster else l2_hop)
+        if cluster:
+            row["copy_ms"] = device_ms(lambda: PJ.successor_walk(table, 0), kernel)
+            row["floor_ms"] += row["copy_ms"]
+        row["library_ms"] = None  # no one PyTorch call walks successors
+        log(f"phase 2: {name} device {row['device_ms']:.4f} ms, latency floor "
+            f"{row['floor_ms']:.4f} ms, bytes-once bound {row['bound_ms']:.4f} ms")
+        rows.append(row)
+    # both kernels on the probe's table, in turns
+    l2 = lambda: PJ.walk_kernel(succ, hops, cluster=False)
+    check(torch.equal(l2(), PJ.successor_walk(succ, hops)), "the two walk kernels differ at 2^18")
+    _, _, all4 = time_pair(lambda: PJ.successor_walk(succ, hops), l2)
+    dev = [device_ms(l2, "successor_walk_kernel"), device_ms(lambda: PJ.successor_walk(succ, hops), cluster_kernel),
+           device_ms(lambda: PJ.successor_walk(succ, hops), cluster_kernel), device_ms(l2, "successor_walk_kernel")]
+    log(f"phase 2: successor_walk at 2^18, L2 against cluster kernel, in turns: events "
+        f"{json.dumps(all4)} ms (cluster, cluster, L2, L2); device {json.dumps(dev)} ms (L2, cluster, cluster, L2)")
+    return rows
+
+
+def rank_loop_ruler_level(gen, x, device) -> dict:
+    """rank_loop at the shape rank_lists gives it on the main carry: the
     ruler level, one row per ruler (the carry's terminal states and its
     states whose hash picks them at the wrapper's spacing), linked into as
-    many lists as the carry has."""
+    many lists as the carry has, with the early exit.  Its latency floor:
+    as many rounds of one dependent L2 load and one grid barrier, on the
+    same grid."""
     from tpu_debruijn_torch.kernels import pointer_jump as PJ
 
     n = x.shape[0]
@@ -445,13 +544,23 @@ def rank_round_ruler_level(gen, x, device) -> dict:
     s = successor_forest(gen, nr, max(1, nr // n_lists), device)
     y = torch.stack([s, s >= 0, torch.randint(0, 1 << 30, (nr,), generator=gen, device=device),
                      torch.where(s < 0, torch.arange(nr, device=device), -1)], dim=1).to(torch.int32)
-    spare = torch.empty_like(y)
-    e = max_abs_diff(PJ.rank_round(y, out=spare)[:1], PJ.rank_round_plain(y)[:1])
-    check(e == 0, f"rank_round at the ruler level: kernel != plain (max abs err {e})")
-    return kernel_row("rank_round", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
-                      lambda: PJ.rank_round(y, out=spare), lambda: PJ.rank_round_plain(y),
-                      e, f"({nr}, 4) int32, the ruler level of the main carry at spacing "
-                      f"{PJ.RULER_SPACING}", 2 * nbytes(y))
+    full = PJ._full_rounds(nr)
+    got, ran = PJ.rank_loop(y, full)
+    want, t = PJ.rank_loop_plain(y, full)
+    e = max_abs_diff((got,), (want,))
+    check(e == 0, f"rank_loop at the ruler level: kernel != plain (max abs err {e})")
+    check(int(ran) == t, f"rank_loop ran {int(ran)} rounds, the plain loop {t}")
+    row = kernel_row("rank_loop", "pointer_jump.cu", "tpu_debruijn/compress.py:297",
+                     lambda: PJ.rank_loop(y, full), lambda: PJ.rank_loop_plain(y, full),
+                     e, f"({nr}, 4) int32, the ruler level of the main carry at spacing "
+                     f"{PJ.RULER_SPACING}", 2 * nbytes(y))
+    row.update(rounds=t, grid=PJ.rank_loop_grid(nr),
+               device_ms=device_ms(lambda: PJ.rank_loop(y, full), "rank_loop_kernel"),
+               floor_ms=latency_floor_ms(nr, t, True))
+    log(f"phase 2: rank_loop at the ruler level: {t} rounds of {full} in one launch of "
+        f"{row['grid']} blocks; device {row['device_ms']:.4f} ms, latency floor "
+        f"{row['floor_ms']:.4f} ms ({t} dependent L2 loads and grid barriers)")
+    return row
 
 
 def host_launch_costs(tab2, idx_rows, rows64, calls: int = 1000) -> None:
@@ -497,8 +606,10 @@ def phase_ranking(gen, x, device) -> int:
     cycle's minimum, all that the callers read there
     (tpu_debruijn/compress.py:243-245).  Lane for lane against the
     kernels' step-for-step transcription on the CPU at 2^20 states.
-    Times the ruling set (and its ruler spacings) against the loop of
-    rank_round launches it replaced, and the plain loop, on the main carry."""
+    The round path forced by an in-tree made from the main carry: one
+    rank_loop launch, exact against the plain loop.  Times the ruling set
+    (and its ruler spacings) against the doubling loop it replaced (one
+    rank_loop launch) and the plain loop, on the main carry."""
     from tpu_debruijn_torch.kernels import pointer_jump as PJ
 
     def contract(what, got, want):
@@ -509,14 +620,15 @@ def phase_ranking(gen, x, device) -> int:
         return int((~res).sum())
 
     round_path = PJ.rank_lists.round_path
-    rounds_loop = lambda: PJ._doubling(x, PJ.rank_round, PJ._full_rounds(x.shape[0]), True)
+    full = PJ._full_rounds(x.shape[0])
+    rounds_loop = lambda: PJ.rank_loop(x, full)[0]
     want = PJ.rank_lists_plain(x)
     contract("rank_lists main carry", PJ.rank_lists(x), want)
-    check(torch.equal(rounds_loop(), want), "the rank_round loop != the plain loop")
-    before = PJ.rank_round.launches
-    rounds_loop()
+    before = PJ.rank_loop.launches
+    check(torch.equal(rounds_loop(), want), "the rank_loop loop != the plain loop")
+    check(PJ.rank_loop.launches == before + 1, "the doubling loop took more than one launch")
     log(f"phase 2: ranking of the main carry bit-exact against the plain loop; "
-        f"the rank_round loop takes {PJ.rank_round.launches - before} rounds")
+        f"one rank_loop launch runs {int(PJ.rank_loop.last_rounds)} rounds of {full}")
     for cyclic in (False, True):
         s = successor_forest(gen, 1 << 20, 300, device, cyclic)
         xs = torch.stack([s, s >= 0, torch.randint(0, 1 << 30, s.shape, generator=gen, device=device),
@@ -529,11 +641,25 @@ def phase_ranking(gen, x, device) -> int:
         log(f"phase 2: rank_lists over 2^20 states (cyclic={cyclic}, {n_cyc} cycle states) "
             "meets the contract and equals its transcription lane for lane")
     check(PJ.rank_lists.round_path == round_path, "rank_lists took the round path")
+    # the round path: a state with two predecessors
+    xin = x.clone()
+    live = torch.nonzero(xin[:, 0] >= 0).flatten()
+    xin[live[1], 0] = xin[live[0], 0]
+    loops = PJ.rank_loop.launches
+    check(torch.equal(PJ.rank_lists(xin), PJ.rank_lists_plain(xin)), "the round path != the plain loop")
+    check(PJ.rank_lists.round_path == round_path + 1 and PJ.rank_loop.launches == loops + 1,
+          "the in-tree did not take the round path in one rank_loop launch")
+    log(f"phase 2: an in-tree of the main carry takes the round path: one rank_loop launch, "
+        f"{int(PJ.rank_loop.last_rounds)} rounds, exact against the plain loop")
     ms = {f"rank_lists s={sp}": min(time_ms(lambda: PJ.rank_lists(x, sp)) for _ in range(2))
           for sp in (16, 32, 64)}
-    ms["rank_round loop"] = min(time_ms(rounds_loop) for _ in range(2))
+    ms["rank_loop, one launch"] = min(time_ms(rounds_loop) for _ in range(2))
+    ms["rank_lists round path (in-tree)"] = min(time_ms(lambda: PJ.rank_lists(xin)) for _ in range(2))
     ms["plain loop"] = time_ms(lambda: PJ.rank_lists_plain(x), iters=2)
     log("phase 2: whole ranking of the main carry (ms): " + json.dumps(ms))
+    log("phase 2: rank_loop on the main carry, device ms under the profiler: "
+        f"{device_ms(rounds_loop, 'rank_loop_kernel', reps=3):.4f}")
+    del xin
     prof = profile_device_ms(lambda: PJ.rank_lists(x), top=8)
     log("phase 2: rank_lists on the main carry under the profiler: " + json.dumps(prof))
     return 0
@@ -676,17 +802,45 @@ def same_chains(a, b) -> bool:
     return per_item and a.n_unitigs == b.n_unitigs and per_unitig
 
 
+def launch_counters() -> dict:
+    """Where each kernel counts its launches, by the name of its row:
+    (wrapper, attribute)."""
+    from tpu_debruijn_torch import kernels as KN
+
+    return {
+        "canonical": (KN.canonicalize, "launches"),
+        "extract_canonical": (KN.extract_canonical, "launches"),
+        "gather_rows": (KN.gather_rows, "launches"),
+        "take_along_axis": (KN.take_along_axis, "launches"),
+        "successor_walk": (KN.successor_walk, "launches"),
+        "successor_walk_cluster": (KN.successor_walk, "cluster_launches"),
+        "rank_loop": (KN.rank_loop, "launches"),
+        "rank_lists": (KN.rank_lists, "launches"),
+    }
+
+
+def reset_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    counters["rank_lists"][0].round_path = 0
+
+
+def read_counts(counters) -> dict:
+    counts = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    counts["rank_lists.round_path"] = counters["rank_lists"][0].round_path
+    return counts
+
+
 def phase_ordered(reads, nodes_main, counters, device) -> dict:
     """The read-ordered path on the main path's reads: obs_min table ->
     ordered compress -> unitigs.  Kernel launches are counted over this run
-    alone; the plain linker then runs on the same table for comparison."""
+    alone; the plain linker then runs on the same table for comparison.
+    Each linker's rounds are the device count of its one rank_loop launch."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch.kernels import rank_loop
 
-    rank_round = counters["rank_round"]
-    for fn in counters.values():
-        fn.launches = 0
-    counters["rank_lists"].round_path = 0
+    reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     t = [time.perf_counter()]
     table = T.filter_kmers([(r, 0, 0) for r in reads], k=K, stranded=False, min_obs=2,
@@ -700,15 +854,15 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     t.append(time.perf_counter())
     nodes = C.assemble_chains(table.spec, table.kmers, chains, u_exts, contrib, table.counts)
     t.append(time.perf_counter())
-    launches = {name: fn.launches for name, fn in counters.items()}
-    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
-    rounds_ordered = launches["rank_round"]
+    rounds_ordered = int(rank_loop.last_rounds)
 
     check(not overflow, "the ordered linker overflowed its interval cap")
-    before = rank_round.launches
+    before = rank_loop.launches
     plain = C.compress_kmer_table_device(table.spec, False, table.kmers, table.exts)
-    rounds_plain = rank_round.launches - before
+    check(rank_loop.launches == before + 1, "the plain linker's ranking took more than one rank_loop")
+    rounds_plain = int(rank_loop.last_rounds)
     check(same_chains(chains, plain[0]), "ordered chains != plain link_chains chains")
     check(len(nodes) == len(nodes_main) and all(
         np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nodes, nodes_main)
@@ -888,23 +1042,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # every wrapper counts its launches; the kernels each path must launch
-    counters = {
-        "canonical": KN.canonicalize, "extract_canonical": KN.extract_canonical,
-        "gather_rows": KN.gather_rows, "take_along_axis": KN.take_along_axis,
-        "successor_walk": KN.successor_walk, "rank_round": KN.rank_round,
-        "rank_lists": KN.rank_lists,
-    }
-    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_round", "rank_lists")
+    counters = launch_counters()
+    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3: the main path
         genome = make_genome(rng, ECOLI_LEN, repeat_rich=False)
-        for fn in counters.values():
-            fn.launches = 0
-        KN.rank_lists.round_path = 0
+        reset_counts(counters)
         main, reads, nodes_main, table = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
-        by_path["quick_start"] = {name: fn.launches for name, fn in counters.items()}
-        by_path["quick_start"]["rank_lists.round_path"] = KN.rank_lists.round_path
+        by_path["quick_start"] = read_counts(counters)
+        main["rank_loop_rounds"] = int(KN.rank_loop.last_rounds)
         main["gather_rows_launches"]["resolve_edges"] = resolve_edges_gathers(table)
         del table
         log("phase 3 (main path): " + json.dumps(main))
@@ -918,6 +1065,9 @@ def main(argv=None) -> int:
             for name in on_path:
                 check(launches[name] > 0, f"the {path} path never launched kernel {name}")
             check(launches["rank_lists.round_path"] == 0, f"the {path} path ranked by the round path")
+            check(launches["rank_loop"] == launches["rank_lists"],
+                  f"the {path} path: {launches['rank_loop']} rank_loop launches for "
+                  f"{launches['rank_lists']} rankings")
         for r in rows:
             r["launches_by_path"] = {path: by_path[path][r["name"]] for path in by_path}
             r["launches"] = sum(r["launches_by_path"].values())

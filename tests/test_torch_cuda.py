@@ -6,6 +6,8 @@ them.  This file imports no JAX, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,8 @@ from tpu_debruijn_torch.kernels import (
     gather_rows_plain,
     rank_lists,
     rank_lists_plain,
-    rank_round,
+    rank_loop,
+    rank_loop_plain,
     rank_round_plain,
     successor_walk,
     successor_walk_plain,
@@ -206,6 +209,39 @@ def test_successor_walk_kernel_matches_plain(cuda, kind):
     assert torch.equal(got, successor_walk_plain(succ, 18))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["probe", "terminal", "cycles"])
+@pytest.mark.parametrize("steps", [0, 1, 18, 64])
+@pytest.mark.parametrize("m", [5, 1000, 1 << 18, (1 << 18) + 1, 1 << 21])
+def test_successor_walk_both_kernels(cuda, m, steps, kind):
+    """The wrapper takes the cluster kernel up to CLUSTER_WALK_MAX entries
+    and the L2 kernel above; both kernels also at 2^18.  Successors out of
+    range are clamped, as the plain version does."""
+    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+
+    rng = np.random.default_rng(m + steps)
+    if kind == "probe":
+        succ = np.where(rng.random(m) < 0.99, rng.integers(0, m + 3, m), -1)
+    elif kind == "terminal":
+        succ = np.full(m, -1)
+    else:
+        succ = rng.permutation(m)
+    succ = torch.from_numpy(succ.astype(np.int32)).to(cuda)
+    want = successor_walk_plain(succ, steps)
+    cluster = m <= PJ.CLUSTER_WALK_MAX
+    before = (successor_walk.launches, successor_walk.cluster_launches)
+    got = successor_walk(succ, steps)
+    assert (successor_walk.launches, successor_walk.cluster_launches) == (
+        before[0] + (not cluster), before[1] + cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if m == 1 << 18:
+        assert torch.equal(PJ.walk_kernel(succ, steps, cluster=False), want)
+    if m > PJ.CLUSTER_WALK_MAX:
+        with pytest.raises(ValueError):
+            PJ.walk_kernel(succ, steps, cluster=True)
+
+
 def _same_ranking(got, want):
     """Exact where the path ends; on cycles succ >= 0 and the same minimum,
     all the callers read there (tpu_debruijn/compress.py:243-245)."""
@@ -224,18 +260,19 @@ def _carry(rng, succ):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cyclic", [False, True])
 def test_rank_round_kernel_matches_plain(cuda, cyclic):
-    """One round, then the whole ranking on the card against the plain
-    doubling loop: exact on resolved states, the cycle contract on cycles."""
+    """One round (rank_loop with max_rounds = 1), then the whole ranking on
+    the card against the plain doubling loop: exact on resolved states, the
+    cycle contract on cycles."""
     from tpu_debruijn_torch import compress as TC
 
     rng = np.random.default_rng(3)
     m = 200_003
     succ = _forest(rng, m, cyclic)
     x = _carry(rng, succ).to(cuda)
-    got, flag = rank_round(x)
-    want, want_flag = rank_round_plain(x)
+    got, rounds = rank_loop(x, 1, early_exit=False)
+    want, _ = rank_round_plain(x)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(flag, want_flag)
+    assert torch.equal(got, want) and rounds.tolist() == [1]
     mnmo = torch.from_numpy(rng.integers(0, 1 << 30, m))
     before = rank_lists.launches
     ranked = TC._rank_all(torch.from_numpy(succ).to(cuda), mnmo.to(cuda))
@@ -244,13 +281,68 @@ def test_rank_round_kernel_matches_plain(cuda, cyclic):
     _same_ranking(torch.stack([g.cpu() for g in ranked], 1), torch.stack(plain, 1))
 
 
+def _lists(rng, m, n_lists):
+    """n_lists random lists over m states."""
+    succ = np.full(m, -1, np.int64)
+    for part in np.array_split(rng.permutation(m), n_lists):
+        succ[part[:-1]] = part[1:]
+    return succ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("max_rounds", [1, 5, None])
+@pytest.mark.parametrize("kind", ["ruler_level", "ruler_level_cycles", "in_tree"])
+def test_rank_loop_kernel_matches_plain(cuda, kind, max_rounds, early_exit):
+    """The persistent loop against the plain loop, every lane and the count
+    of rounds: at the ruler-level shape of the E. coli carry (144,769 rows in
+    two lists), with cycles, and on an in-tree of 2^20 states (the round
+    path's input)."""
+    rng = np.random.default_rng(6)
+    m = 1 << 20 if kind == "in_tree" else 144_769
+    succ = _lists(rng, m, 2) if kind != "ruler_level_cycles" else _forest(rng, m, True)
+    if kind == "in_tree":
+        live = np.nonzero(succ >= 0)[0]
+        succ[live[1]] = succ[live[0]]
+    x = _carry(rng, succ).to(cuda)
+    x0 = x.clone()
+    rounds = max_rounds or math.ceil(math.log2(m + 1))
+    want, t = rank_loop_plain(x, rounds, early_exit)
+    before = rank_loop.launches
+    got, ran = rank_loop(x, rounds, early_exit)
+    assert rank_loop.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and ran.tolist() == [t]
+    assert torch.equal(x, x0)  # the input is only read
+
+
+@pytest.mark.cuda
+def test_rank_loop_grid(cuda):
+    """The cooperative grid: the resident blocks of the card (a whole number
+    per SM, at most 2048 threads per SM), and no more than the rows need."""
+    from tpu_debruijn_torch.kernels.pointer_jump import rank_loop_grid
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = rank_loop_grid(1 << 30)
+    assert resident % sms == 0 and 1 <= resident // sms <= 2048 // 256
+    for m in (1, 255, 256, 257, 144_769, 1 << 20, 9_283_244):
+        assert rank_loop_grid(m) == min(-(-m // 256), resident)
+    # a loop as wide as the card, every block resident at once
+    rng = np.random.default_rng(9)
+    x = _carry(rng, _lists(rng, 256 * resident + 77, 3)).to(cuda)
+    got, ran = rank_loop(x, 30)
+    want, t = rank_loop_plain(x, 30)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and ran.tolist() == [t]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("spacing", [2, 32])
 @pytest.mark.parametrize("kind", ["forest", "chain", "cycles", "in_tree"])
 def test_rank_lists_kernels_match_plain(cuda, kind, spacing):
     """The ruling-set kernels against the doubling loop and, lane for lane,
     against their step-for-step transcription; an in-tree takes the round
-    path and comes out exact."""
+    path and comes out exact, from one rank_loop launch."""
     from tpu_debruijn_torch.kernels.pointer_jump import rank_lists_rulers_plain
 
     rng = np.random.default_rng(5)
@@ -265,9 +357,12 @@ def test_rank_lists_kernels_match_plain(cuda, kind, spacing):
         live = np.nonzero(succ >= 0)[0]
         succ[live[1]] = succ[live[0]]
     x = _carry(rng, succ)
-    before = rank_lists.round_path
+    before, loops = rank_lists.round_path, rank_loop.launches
     got = rank_lists(x.to(cuda), spacing).cpu()
     assert rank_lists.round_path == before + (kind == "in_tree")
+    # one loop for the ruler level or the round path; one more for cycles
+    # without a ruler
+    assert rank_loop.launches - loops in ((1,) if kind != "cycles" else (1, 2))
     want = rank_lists_plain(x)
     if kind == "in_tree":
         assert torch.equal(got, want)

@@ -19,7 +19,7 @@ from jax.experimental import pallas as pl
 
 from tpu_debruijn_torch.kernels import (
     gather_rows,
-    rank_round,
+    rank_loop,
     successor_walk,
     take_along_axis,
 )
@@ -220,4 +220,4 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError):
         successor_walk(torch.zeros(4, **meta), 18)
     with pytest.raises(ValueError):
-        rank_round(torch.zeros((4, 4), **meta))
+        rank_loop(torch.zeros((4, 4), **meta), 1)

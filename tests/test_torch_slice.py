@@ -2,7 +2,9 @@
 JAX package and through tpu_debruijn_torch (device="cpu") on one FASTQ
 file must write byte-identical GFA files."""
 
+import ast
 import gzip
+import pathlib
 import subprocess
 import sys
 
@@ -81,9 +83,24 @@ def test_combined_graphs_gfa_identical(tmp_path, rng):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port imports without JAX or the JAX package, and
+    chip_smoke.py names neither in any import."""
     code = (
-        "import sys, tpu_debruijn_torch, tpu_debruijn_torch.kernels;"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu_debruijn.')) or m == 'tpu_debruijn');"
-        "assert not bad, bad"
+        "import importlib, pkgutil, sys, tpu_debruijn_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpu_debruijn_torch.__path__, 'tpu_debruijn_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'tpu_debruijn_torch.kernels.pointer_jump' in names, names\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_debruijn') or m.startswith(('jax.', 'tpu_debruijn.')))\n"
+        "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True)
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    imported = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append(node.module or "")
+    assert "tpu_debruijn_torch" in imported
+    assert not [m for m in imported if m.split(".")[0] in ("jax", "tpu_debruijn")], imported

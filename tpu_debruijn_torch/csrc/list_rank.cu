@@ -18,7 +18,7 @@
 //    terminal (succ < 0) and every state whose fmix32 hash is 0 mod the
 //    spacing s (a power of two).  A second claim on one pred slot (in-degree
 //    above 1) or a successor >= m sets a flag; the caller then ranks that
-//    input with rank_round instead.  A second coalesced pass writes the walk
+//    input with rank_loop instead.  A second coalesced pass writes the walk
 //    rows out[v] = (pred[v], dist0, mnmo, end0).
 // 2. walk: one thread per ruler r walks pred from r until a head or the next
 //    ruler upstream, summing dist0 (uint32, so it wraps as int32 does) and
@@ -29,9 +29,10 @@
 //    seg_min), end0(r2)); a terminal ruler keeps its own row.  About m / s
 //    walkers, mean walk s hops, one random 16-byte row read per hop and the
 //    write to the same sector.
-// 3. The ruler-level carry (m / s rows, L2-resident) is ranked by
-//    ceil(log2(m / s + 1)) rank_round launches from the caller, with no read
-//    of the unresolved flag in between (a resolved row never changes).
+// 3. The ruler-level carry (m / s rows, L2-resident) is ranked by the
+//    caller's one rank_loop launch (csrc/pointer_jump.cu): at most
+//    ceil(log2(m / s + 1)) doubling rounds, stopping on the card once every
+//    pointer is resolved.
 // 4. expand: one coalesced pass; a ruler takes its ruler-level result, a
 //    visited state v with ruler r takes (succ(r), seg_dist(v) + dist(r),
 //    min(seg_min(v), mnmo(r)), end(r)).  States that no walk reached lie on

@@ -21,9 +21,9 @@ from tpu_debruijn_torch.kernels.pointer_jump import (
     rank_lists,
     rank_lists_plain,
     rank_lists_rulers_plain,
-    rank_round,
+    rank_loop,
+    rank_loop_plain,
     rank_round_plain,
-    rank_rounds,
     successor_walk,
     successor_walk_plain,
 )
@@ -40,9 +40,9 @@ __all__ = [
     "rank_lists",
     "rank_lists_plain",
     "rank_lists_rulers_plain",
-    "rank_round",
+    "rank_loop",
+    "rank_loop_plain",
     "rank_round_plain",
-    "rank_rounds",
     "successor_walk",
     "successor_walk_plain",
     "take_along_axis",

@@ -1,17 +1,22 @@
-"""Pointer jumping: a successor walk, a round of pointer doubling, and list
+"""Pointer jumping: a successor walk, the pointer-doubling loop, and list
 ranking by a ruling set.
 
-Kernels 5 and 6 of the port are in ``csrc/pointer_jump.cu``, kernel 7 (three
+The walk and the loop are in ``csrc/pointer_jump.cu``, the ruling set (three
 launches) in ``csrc/list_rank.cu``.
 
 - :func:`successor_walk` replaces the Pallas probe
   ``scripts/probe_pallas_gather.py::k4``: ``steps`` hops of
   ``s <- succ[s]`` through the original, fixed table (-1 is terminal).  It
-  is a walk, not pointer doubling, so the whole walk is one launch.
-- :func:`rank_round` is the round that probe was designed for: one
-  synchronous round of ``compress._rank_all`` on the (m, 4) int32 carry
+  is a walk, not pointer doubling, so the whole walk is one launch: a table
+  of up to :data:`CLUSTER_WALK_MAX` entries is walked in a thread block
+  cluster's distributed shared memory, a larger one through L2.
+- :func:`rank_loop` is the loop that probe was designed for: the
+  ``lax.while_loop`` of ``compress._rank_all`` on the (m, 4) int32 carry
   ``[succ, dist, mnmo, end]``, with the update rule of
-  ``tpu_debruijn/compress.py:281-295``.  It ranks the ruler-level carry of
+  ``tpu_debruijn/compress.py:281-295`` and, with ``early_exit``, its
+  condition: stop after the first round that leaves no ``succ >= 0``.  One
+  cooperative launch runs every round, with a grid barrier between rounds
+  and the condition read on the card.  It ranks the ruler-level carry of
   :func:`rank_lists`, and every input :func:`rank_lists` leaves to it.
 - :func:`rank_lists` is the whole ranking of ``compress._rank_all``: a
   sparse ruling set (one pass for predecessors and rulers, one backward walk
@@ -20,16 +25,11 @@ launches) in ``csrc/list_rank.cu``.
   :func:`rank_lists_plain` is the doubling loop; :func:`rank_lists_rulers_plain`
   transcribes the kernels' algorithm step for step.
 
-On the H100 both are bound by the latency of random 16-byte reads.  A round
-reads its own row and its successor's row with one 16-byte load each and
-writes to a second buffer (an in-place round would let ``dist`` and the
-min lane depend on thread scheduling), and it raises a device flag when a
-pointer is still unresolved, so the caller reads 4 bytes per round instead
-of reducing over the carry.
-
-Both wrappers launch their kernel for a CUDA tensor and run the plain
-PyTorch version (``*_plain``) for a CPU tensor; ``.launches`` counts kernel
-launches.  ``dist`` adds in int32 and wraps on overflow in both versions.
+All of them are bound by the latency of dependent loads on the H100.  Each
+wrapper launches its kernel for a CUDA tensor and runs the plain PyTorch
+version (``*_plain``) for a CPU tensor; ``.launches`` counts kernel launches
+(``successor_walk.cluster_launches`` those of the cluster kernel).  ``dist``
+adds in int32 and wraps on overflow in both versions.
 """
 
 from __future__ import annotations
@@ -44,12 +44,9 @@ from tpu_debruijn_torch.kernels import _build
 _WALK_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 ]
-_ROUND_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-]
-_ROUNDS_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p,
+_LOOP_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p,
 ]
 _LINKS_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
@@ -65,6 +62,9 @@ _EXPAND_ARGTYPES = [
 ]
 # states per ruler on average (a power of two), chosen on the H100: PERF.md
 RULER_SPACING = 64
+# the largest table a cluster of 8 blocks holds in power-of-two slices of
+# 128 KB of shared memory each (csrc/pointer_jump.cu)
+CLUSTER_WALK_MAX = 8 << 15
 _M32 = 0xFFFFFFFF
 _INT32_MAX = 0x7FFFFFFF
 
@@ -81,32 +81,48 @@ def successor_walk_plain(succ: torch.Tensor, steps: int) -> torch.Tensor:
 
 def successor_walk(succ: torch.Tensor, steps: int) -> torch.Tensor:
     """(M,) int32 successors (-1 terminal) -> where each element stands after
-    ``steps`` further hops through the same table."""
+    ``steps`` further hops through the same table.  On CUDA a table of up to
+    :data:`CLUSTER_WALK_MAX` entries is walked in a cluster's shared memory,
+    a larger one through L2."""
     if succ.device.type == "cpu":
         return successor_walk_plain(succ, steps)
     if succ.device.type != "cuda":
         raise ValueError(f"successor_walk: no kernel for device {succ.device}")
+    return walk_kernel(succ, steps, cluster=succ.shape[0] <= CLUSTER_WALK_MAX)
+
+
+def walk_kernel(succ: torch.Tensor, steps: int, cluster: bool) -> torch.Tensor:
+    """One of :func:`successor_walk`'s two kernels on a CUDA table, chosen by
+    the caller: the cluster kernel (``cluster``, up to
+    :data:`CLUSTER_WALK_MAX` entries) or the L2 kernel."""
     if succ.dtype != torch.int32 or succ.dim() != 1:
         raise ValueError("successor_walk: succ must be (M,) int32")
     if steps < 0:
         raise ValueError("successor_walk: steps must be >= 0")
+    if cluster and succ.shape[0] > CLUSTER_WALK_MAX:
+        raise ValueError(f"successor_walk: a cluster holds at most {CLUSTER_WALK_MAX} entries")
     succ = succ.contiguous()
+    if succ.data_ptr() % 16:  # the cluster kernel copies the table in 16-byte units
+        succ = succ.clone()
     out = torch.empty_like(succ)
     if succ.numel() == 0:
         return out
-    fn = _build.library().function("tdb_successor_walk", _WALK_ARGTYPES)
-    _build.check("tdb_successor_walk", fn(
-        succ.data_ptr(), succ.shape[0], steps, out.data_ptr(),
-        _build.stream_ptr(succ.device),
+    name = "tdb_successor_walk_cluster" if cluster else "tdb_successor_walk"
+    _build.check(name, _build.library().function(name, _WALK_ARGTYPES)(
+        succ.data_ptr(), succ.shape[0], steps, out.data_ptr(), _build.stream_ptr(succ.device),
     ))
-    successor_walk.launches += 1
+    if cluster:
+        successor_walk.cluster_launches += 1
+    else:
+        successor_walk.launches += 1
     return out
 
 
 successor_walk.launches = 0
+successor_walk.cluster_launches = 0
 
 
-def rank_round_plain(x: torch.Tensor, out=None):
+def rank_round_plain(x: torch.Tensor):
     """One doubling round on the (m, 4) int32 carry, plain PyTorch: the loop
     body of ``_rank_all``.  Returns (next carry, unresolved) with
     ``unresolved`` a (1,) int32 tensor, 1 iff some next ``succ`` is >= 0."""
@@ -119,88 +135,73 @@ def rank_round_plain(x: torch.Tensor, out=None):
         x[:, 1] + torch.where(has, g[:, 1], 0),
         torch.where(has, torch.minimum(x[:, 2], g[:, 2]), x[:, 2]),
         torch.where(has, g[:, 3], x[:, 3]),
-    ], dim=1, out=out)
+    ], dim=1)
     return nxt, (nxt[:, 0] >= 0).any().to(torch.int32).reshape(1)
 
 
-def rank_round(x: torch.Tensor, out=None):
-    """One synchronous pointer-doubling round on the (m, 4) int32 carry
-    ``[succ, dist, mnmo, end]``: every row with ``succ >= 0`` takes its
-    successor's succ and end, adds its dist and keeps the min of mnmo.
+def rank_loop_plain(x: torch.Tensor, max_rounds: int, early_exit: bool = True):
+    """``_rank_all``'s ``while_loop`` step for step, plain PyTorch: from
+    ``(x, t = 0, active = True)``, while ``active and t < max_rounds``, one
+    :func:`rank_round_plain`, ``t += 1`` and ``active`` = some ``succ >= 0``
+    (always True without ``early_exit``).  Returns (final carry, t)."""
+    cur, t, active = x, 0, True
+    while active and t < max_rounds:
+        cur, unresolved = rank_round_plain(cur)
+        t += 1
+        active = bool(unresolved) or not early_exit
+    return cur, t
 
-    ``out`` (optional, (m, 4) int32, not ``x``) receives the next carry.
-    Returns (next carry, unresolved), ``unresolved`` a (1,) int32 tensor on
-    ``x``'s device, 1 iff some next ``succ`` is >= 0.
+
+def rank_loop(x: torch.Tensor, max_rounds: int, early_exit: bool = True):
+    """Up to ``max_rounds`` synchronous pointer-doubling rounds on the (m, 4)
+    int32 carry ``[succ, dist, mnmo, end]``: every row with ``succ >= 0``
+    takes its successor's succ and end, adds its dist and keeps the min of
+    mnmo.  With ``early_exit`` the loop stops after the first round that
+    leaves no ``succ >= 0``, as ``_rank_all``'s condition does.
+
+    Returns (final carry, rounds): ``rounds`` is a (1,) int32 tensor on
+    ``x``'s device holding the count of rounds run, which the caller need
+    not read (``rank_loop.last_rounds`` keeps the latest).  On CUDA one
+    cooperative launch; ``x`` is not modified.
     """
+    if max_rounds < 1:
+        raise ValueError("rank_loop: max_rounds must be >= 1")
     if x.device.type == "cpu":
-        return rank_round_plain(x, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"rank_round: no kernel for device {x.device}")
-    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 4:
-        raise ValueError("rank_round: the carry must be (m, 4) int32")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # rows are read with 16-byte loads
-        x = x.clone()
-    if out is None:
-        out = torch.empty_like(x)
-    elif (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
-          or not out.is_contiguous() or out.data_ptr() % 16 or out.data_ptr() == x.data_ptr()):
-        raise ValueError("rank_round: out must be a distinct, aligned (m, 4) int32 buffer")
-    if x.shape[0] == 0:
-        return out, torch.zeros(1, dtype=torch.int32, device=x.device)
-    unresolved = torch.empty(1, dtype=torch.int32, device=x.device)
-    fn = _build.library().function("tdb_rank_round", _ROUND_ARGTYPES)
-    _build.check("tdb_rank_round", fn(
-        x.data_ptr(), x.shape[0], out.data_ptr(), unresolved.data_ptr(),
-        _build.stream_ptr(x.device),
-    ))
-    rank_round.launches += 1
-    return out, unresolved
+        carry, t = rank_loop_plain(x, max_rounds, early_exit)
+        rounds = torch.tensor([t], dtype=torch.int32)
+    elif x.device.type != "cuda":
+        raise ValueError(f"rank_loop: no kernel for device {x.device}")
+    elif x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 4:
+        raise ValueError("rank_loop: the carry must be (m, 4) int32")
+    elif x.shape[0] == 0:  # the plain loop's one round on nothing
+        carry, rounds = x.clone(), torch.ones(1, dtype=torch.int32, device=x.device)
+    else:
+        x = x.contiguous()
+        if x.data_ptr() % 16:  # rows are read with 16-byte loads
+            x = x.clone()
+        carry, spare = torch.empty_like(x), torch.empty_like(x)
+        state = torch.empty(max_rounds + 1, dtype=torch.int32, device=x.device)
+        _build.check("tdb_rank_loop", _build.library().function("tdb_rank_loop", _LOOP_ARGTYPES)(
+            x.data_ptr(), carry.data_ptr(), spare.data_ptr(), x.shape[0], max_rounds,
+            int(early_exit), state.data_ptr(), _build.stream_ptr(x.device),
+        ))
+        rank_loop.launches += 1
+        rounds = state[max_rounds:]
+    rank_loop.last_rounds = rounds
+    return carry, rounds
 
 
-rank_round.launches = 0
+rank_loop.launches = 0
+rank_loop.last_rounds = None
 
 
-def rank_rounds(x: torch.Tensor, rounds: int) -> torch.Tensor:
-    """``rounds`` doubling rounds on the (m, 4) int32 carry with no read of
-    the unresolved flag in between: the final carry of doubling once
-    ``2^rounds`` exceeds every path's length (a resolved row never
-    changes).  On CUDA, ``rounds`` :func:`rank_round` launches from one C
-    call (each counted in ``rank_round.launches``); ``x`` is used as one of
-    the two buffers and is overwritten.  On the CPU, the plain rounds."""
-    if x.device.type == "cpu":
-        return _doubling(x, rank_round_plain, rounds, early_exit=False)
-    if x.device.type != "cuda":
-        raise ValueError(f"rank_rounds: no kernel for device {x.device}")
-    if (x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 4
-            or not x.is_contiguous() or x.data_ptr() % 16):
-        raise ValueError("rank_rounds: the carry must be a contiguous, aligned (m, 4) int32 tensor")
-    if x.shape[0] == 0 or rounds <= 0:
-        return x
-    spare = torch.empty_like(x)
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
-    fn = _build.library().function("tdb_rank_rounds", _ROUNDS_ARGTYPES)
-    _build.check("tdb_rank_rounds", fn(
-        x.data_ptr(), spare.data_ptr(), x.shape[0], rounds, scratch.data_ptr(),
-        _build.stream_ptr(x.device),
-    ))
-    rank_round.launches += rounds
-    return spare if rounds % 2 else x
-
-
-def _doubling(x: torch.Tensor, round_fn, rounds: int, early_exit: bool) -> torch.Tensor:
-    """``rounds`` doubling rounds of ``round_fn`` from ``x`` (left as it is),
-    stopping early once the round's flag says every pointer resolved when
-    ``early_exit``.  A resolved row never changes, so the early exit only
-    saves rounds."""
-    cur, free = x, torch.empty_like(x)
-    for _ in range(rounds):
-        nxt, unresolved = round_fn(cur, out=free)
-        free = cur if cur is not x else torch.empty_like(x)
-        cur = nxt
-        if early_exit and not bool(unresolved):
-            break
-    return cur
+def rank_loop_grid(m: int) -> int:
+    """The blocks of :func:`rank_loop`'s cooperative launch for m rows on the
+    current CUDA device."""
+    blocks = ctypes.c_uint(0)
+    fn = _build.library().function("tdb_rank_loop_grid", [ctypes.c_int64, ctypes.c_void_p])
+    _build.check("tdb_rank_loop_grid", fn(m, ctypes.addressof(blocks)))
+    return blocks.value
 
 
 def _full_rounds(m: int) -> int:
@@ -213,7 +214,7 @@ def rank_lists_plain(x: torch.Tensor) -> torch.Tensor:
     """Wyllie's pointer doubling on the (m, 4) int32 carry, plain PyTorch:
     :func:`rank_round_plain` until no pointer is open, at most
     ceil(log2(m + 1)) rounds.  Returns the final carry."""
-    return _doubling(x, rank_round_plain, _full_rounds(x.shape[0]), early_exit=True)
+    return rank_loop_plain(x, _full_rounds(x.shape[0]))[0]
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -240,12 +241,12 @@ def _check_spacing(spacing: int) -> None:
 
 def _rank_apart(x: torch.Tensor, out: torch.Tensor, states: torch.Tensor) -> None:
     """Rank the sub-carry of ``states`` (closed under succ: every state on
-    a cycle without a ruler) with full doubling rounds, into ``out``."""
+    a cycle without a ruler) with one doubling loop, into ``out``."""
     relabel = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
     relabel[states] = torch.arange(states.shape[0], device=x.device)
     sub = x[states]
     sub[:, 0] = relabel[sub[:, 0].to(torch.int64)].to(torch.int32)
-    sub = rank_rounds(sub, _full_rounds(states.shape[0]))
+    sub = rank_loop(sub, _full_rounds(states.shape[0]))[0]
     sub[:, 0] = states[sub[:, 0].to(torch.int64)].to(torch.int32)
     out[states] = sub
 
@@ -308,9 +309,9 @@ def rank_lists_rulers_plain(x: torch.Tensor, spacing: int = RULER_SPACING) -> to
         seg[v] = torch.stack([j.to(torch.int32), acc_d, acc_m], dim=1)
         visited[v] = True
         v = pred[v]
-    # 3. the ruler level, full rounds
+    # 3. the ruler level, one doubling loop
     if nr:
-        y = rank_rounds(y, _full_rounds(nr))
+        y = rank_loop_plain(y, _full_rounds(nr))[0]
     back = lambda s: torch.where(s >= 0, rulers[s.clamp(min=0).to(torch.int64)].to(torch.int32), s)
     # 4. expand
     out[rulers] = torch.stack([back(y[:, 0]), y[:, 1], y[:, 2], y[:, 3]], dim=1)
@@ -336,7 +337,7 @@ def rank_lists(x: torch.Tensor, spacing: int = RULER_SPACING) -> torch.Tensor:
 
     On CUDA, the ruling set of ``csrc/list_rank.cu`` with ``spacing``
     states per ruler on average; an input with a state of in-degree above 1
-    or a successor out of range is ranked by :func:`rank_round` launches
+    or a successor out of range is ranked by one :func:`rank_loop` launch
     instead (counted in ``rank_lists.round_path``).  On the CPU,
     :func:`rank_lists_plain`.  ``x`` is not modified.
     """
@@ -367,7 +368,7 @@ def rank_lists(x: torch.Tensor, spacing: int = RULER_SPACING) -> torch.Tensor:
     ))
     if int(flag):
         rank_lists.round_path += 1
-        return _doubling(x, rank_round, _full_rounds(m), early_exit=True)
+        return rank_loop(x, _full_rounds(m))[0]
     del pred
     rulers = torch.nonzero(tag).flatten()
     nr = rulers.shape[0]
@@ -378,7 +379,7 @@ def rank_lists(x: torch.Tensor, spacing: int = RULER_SPACING) -> torch.Tensor:
         stream,
     ))
     if nr:
-        y = rank_rounds(y, _full_rounds(nr))
+        y = rank_loop(y, _full_rounds(nr))[0]
     _build.check("tdb_rank_lists_expand", lib.function("tdb_rank_lists_expand", _EXPAND_ARGTYPES)(
         y.data_ptr(), rulers.data_ptr(), rid.data_ptr(), tag.data_ptr(), m, out.data_ptr(),
         flag.data_ptr(), stream,
