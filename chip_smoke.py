@@ -22,13 +22,11 @@ Phases; any failure raises and the script exits non-zero:
    (111.4M, 4) observation rows by a random permutation and by a sorted
    index, and 32-byte rows by the permutation, each beside its bytes-once
    bound and the random-gather floor (a 32-byte sector per row).
-   successor_walk's two kernels (the cluster kernel at 2^18 entries, the L2
-   kernel at 2^21, through the wrapper's choice by size; both at 2^18 in
-   turns) and rank_loop at the ruler level of that carry (the shape
-   rank_lists launches it at, with the count of rounds the card ran), each
-   also with its device time under torch.profiler and its latency floor
-   (dependent loads and, for rank_loop, grid barriers, measured on the
-   card).  The whole ranking (rank_lists, the ruling set) against the plain
+   successor_walk at the probe's shape and rank_loop at the ruler level of
+   that carry (the shape rank_lists launches it at, with the count of rounds
+   the card ran), each also with its device time under torch.profiler and
+   its latency floor (dependent loads and, for rank_loop, grid barriers,
+   measured on the card).  The whole ranking (rank_lists, the ruling set) against the plain
    doubling loop on that carry, a list forest and an input with cycles:
    exact where a path ends, the cycle contract on cycles; the round path on
    an in-tree of that carry, exact, in one rank_loop launch; timed against
@@ -401,7 +399,7 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
                    lambda: take_along_axis_plain(tab2, idx_rows, 0),
                    err["take_along_axis"], f"({r}, {l}) int32, axis 0", nbytes(tab2, idx_rows, tab2),
                    library=lambda: torch.gather(tab2, 0, rows64)),
-        *walk_rows(gen, succ, device),
+        walk_row(succ),
         {**rank_row, "max_abs_err": max(rank_row["max_abs_err"], err["rank_loop"])},
         rank_list_row,
     ]
@@ -454,7 +452,7 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
 def latency_floor_ms(m: int, rounds: int, barrier: bool) -> float:
     """Device ms of csrc/pointer_jump.cu's latency_floor_kernel on
     rank_loop's grid for m rows: ``rounds`` dependent L2 loads per thread,
-    each followed by a grid barrier when ``barrier``."""
+    each followed by rank_loop's grid barrier when ``barrier``."""
     import ctypes
 
     from tpu_debruijn_torch.kernels import _build
@@ -462,70 +460,35 @@ def latency_floor_ms(m: int, rounds: int, barrier: bool) -> float:
     fn = _build.library().function("tdb_latency_floor", [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p])
-    chain = torch.zeros(2, dtype=torch.int32, device="cuda")
+    chain = torch.zeros(1, dtype=torch.int32, device="cuda")
+    state = torch.empty(rounds + 1, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     return device_ms(lambda: _build.check("tdb_latency_floor", fn(
-        chain.data_ptr(), m, rounds, int(barrier), chain[1:].data_ptr(), stream)),
+        chain.data_ptr(), m, rounds, int(barrier), state.data_ptr(), stream)),
         "latency_floor_kernel")
 
 
-def walk_rows(gen, succ, device) -> list:
-    """successor_walk's two kernels against the plain walk, 18 hops over
-    successors with about 1% terminal (probe_pallas_gather.py:102-104): the
-    cluster kernel at the probe's 2^18 entries and the L2 kernel at 2^21,
-    through the wrapper's choice by size; then both kernels at 2^18 in
-    turns.  Each row has its device time under the profiler and its latency
-    floor: 18 hops of the kernel's load (a dependent L2 load, measured with
-    latency_floor_kernel; a distributed-shared-memory load, measured with
-    the cluster kernel walking a 32-state cycle that changes block every
-    hop), plus, for the cluster kernel, its table copy (the kernel at 0
-    hops)."""
-    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+def walk_row(succ, hops: int = 18) -> dict:
+    """successor_walk against the plain walk at the probe's shape, with its
+    device time under the profiler and its latency floor: ``hops``
+    dependent L2 loads, one L2 load's latency measured with
+    latency_floor_kernel on one block (a chain of 8192 loads)."""
+    from tpu_debruijn_torch.kernels import successor_walk, successor_walk_plain
 
-    hops, long = 18, 8192
-    n = 1 << 21
-    big = torch.where(torch.rand(n, generator=gen, device=device) < 0.99,
-                      torch.randint(0, n, (n,), generator=gen, device=device), -1).to(torch.int32)
-    l2_hop = (latency_floor_ms(1, long, False) - latency_floor_ms(1, 0, False)) / long
-    cycle = ((torch.arange(32, device=device) + 4) % 32).to(torch.int32)
-    cluster_kernel = "successor_walk_cluster_kernel"
-    dsmem_hop = (device_ms(lambda: PJ.successor_walk(cycle, long), cluster_kernel)
-                 - device_ms(lambda: PJ.successor_walk(cycle, 0), cluster_kernel)) / long
-    log(f"phase 2: one dependent load: L2 {l2_hop * 1e6:.1f} ns, distributed shared memory "
-        f"{dsmem_hop * 1e6:.1f} ns (one thread's chain of {long} hops)")
-    rows = []
-    for name, table, kernel in (("successor_walk_cluster", succ, cluster_kernel),
-                                ("successor_walk", big, "successor_walk_kernel")):
-        counts = (PJ.successor_walk.launches, PJ.successor_walk.cluster_launches)
-        got = PJ.successor_walk(table, hops)
-        cluster = name == "successor_walk_cluster"
-        check((PJ.successor_walk.launches, PJ.successor_walk.cluster_launches)
-              == (counts[0] + (not cluster), counts[1] + cluster),
-              f"successor_walk at {table.shape[0]} entries did not take its {name} kernel")
-        e = max_abs_diff((got,), (PJ.successor_walk_plain(table, hops),))
-        check(e == 0, f"{name}: kernel != plain (max abs err {e})")
-        row = kernel_row(name, "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
-                         lambda: PJ.successor_walk(table, hops),
-                         lambda: PJ.successor_walk_plain(table, hops),
-                         e, f"({table.shape[0]},) int32, {hops} hops", 2 * nbytes(table))
-        row["device_ms"] = device_ms(lambda: PJ.successor_walk(table, hops), kernel)
-        row["floor_ms"] = hops * (dsmem_hop if cluster else l2_hop)
-        if cluster:
-            row["copy_ms"] = device_ms(lambda: PJ.successor_walk(table, 0), kernel)
-            row["floor_ms"] += row["copy_ms"]
-        row["library_ms"] = None  # no one PyTorch call walks successors
-        log(f"phase 2: {name} device {row['device_ms']:.4f} ms, latency floor "
-            f"{row['floor_ms']:.4f} ms, bytes-once bound {row['bound_ms']:.4f} ms")
-        rows.append(row)
-    # both kernels on the probe's table, in turns
-    l2 = lambda: PJ.walk_kernel(succ, hops, cluster=False)
-    check(torch.equal(l2(), PJ.successor_walk(succ, hops)), "the two walk kernels differ at 2^18")
-    _, _, all4 = time_pair(lambda: PJ.successor_walk(succ, hops), l2)
-    dev = [device_ms(l2, "successor_walk_kernel"), device_ms(lambda: PJ.successor_walk(succ, hops), cluster_kernel),
-           device_ms(lambda: PJ.successor_walk(succ, hops), cluster_kernel), device_ms(l2, "successor_walk_kernel")]
-    log(f"phase 2: successor_walk at 2^18, L2 against cluster kernel, in turns: events "
-        f"{json.dumps(all4)} ms (cluster, cluster, L2, L2); device {json.dumps(dev)} ms (L2, cluster, cluster, L2)")
-    return rows
+    long = 8192
+    l2_load = (latency_floor_ms(1, long, False) - latency_floor_ms(1, 0, False)) / long
+    e = max_abs_diff((successor_walk(succ, hops),), (successor_walk_plain(succ, hops),))
+    check(e == 0, f"successor_walk: kernel != plain (max abs err {e})")
+    row = kernel_row("successor_walk", "pointer_jump.cu", "scripts/probe_pallas_gather.py:90",
+                     lambda: successor_walk(succ, hops), lambda: successor_walk_plain(succ, hops),
+                     e, f"({succ.shape[0]},) int32, {hops} hops", 2 * nbytes(succ))
+    row.update(device_ms=device_ms(lambda: successor_walk(succ, hops), "successor_walk_kernel"),
+               floor_ms=hops * l2_load)
+    log(f"phase 2: successor_walk device {row['device_ms']:.4f} ms, latency floor "
+        f"{row['floor_ms']:.4f} ms ({hops} dependent L2 loads of {l2_load * 1e6:.1f} ns), "
+        f"bytes-once bound {row['bound_ms']:.4f} ms; the one PyTorch call: none, no one "
+        "call walks successors")
+    return row
 
 
 def rank_loop_ruler_level(gen, x, device) -> dict:
@@ -813,7 +776,6 @@ def launch_counters() -> dict:
         "gather_rows": (KN.gather_rows, "launches"),
         "take_along_axis": (KN.take_along_axis, "launches"),
         "successor_walk": (KN.successor_walk, "launches"),
-        "successor_walk_cluster": (KN.successor_walk, "cluster_launches"),
         "rank_loop": (KN.rank_loop, "launches"),
         "rank_lists": (KN.rank_lists, "launches"),
     }

@@ -212,13 +212,11 @@ def test_successor_walk_kernel_matches_plain(cuda, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["probe", "terminal", "cycles"])
 @pytest.mark.parametrize("steps", [0, 1, 18, 64])
-@pytest.mark.parametrize("m", [5, 1000, 1 << 18, (1 << 18) + 1, 1 << 21])
-def test_successor_walk_both_kernels(cuda, m, steps, kind):
-    """The wrapper takes the cluster kernel up to CLUSTER_WALK_MAX entries
-    and the L2 kernel above; both kernels also at 2^18.  Successors out of
-    range are clamped, as the plain version does."""
-    from tpu_debruijn_torch.kernels import pointer_jump as PJ
-
+@pytest.mark.parametrize("m", [5, 1000, 1 << 18, 1 << 21])
+def test_successor_walk_sizes_and_steps(cuda, m, steps, kind):
+    """The probe's 2^18 entries and a table eight times larger, no hop to 64
+    hops, an all-terminal table; successors out of range are clamped, as the
+    plain version does."""
     rng = np.random.default_rng(m + steps)
     if kind == "probe":
         succ = np.where(rng.random(m) < 0.99, rng.integers(0, m + 3, m), -1)
@@ -227,19 +225,11 @@ def test_successor_walk_both_kernels(cuda, m, steps, kind):
     else:
         succ = rng.permutation(m)
     succ = torch.from_numpy(succ.astype(np.int32)).to(cuda)
-    want = successor_walk_plain(succ, steps)
-    cluster = m <= PJ.CLUSTER_WALK_MAX
-    before = (successor_walk.launches, successor_walk.cluster_launches)
+    before = successor_walk.launches
     got = successor_walk(succ, steps)
-    assert (successor_walk.launches, successor_walk.cluster_launches) == (
-        before[0] + (not cluster), before[1] + cluster)
+    assert successor_walk.launches == before + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    if m == 1 << 18:
-        assert torch.equal(PJ.walk_kernel(succ, steps, cluster=False), want)
-    if m > PJ.CLUSTER_WALK_MAX:
-        with pytest.raises(ValueError):
-            PJ.walk_kernel(succ, steps, cluster=True)
+    assert torch.equal(got, successor_walk_plain(succ, steps))
 
 
 def _same_ranking(got, want):
@@ -319,17 +309,18 @@ def test_rank_loop_kernel_matches_plain(cuda, kind, max_rounds, early_exit):
 @pytest.mark.cuda
 def test_rank_loop_grid(cuda):
     """The cooperative grid: the resident blocks of the card (a whole number
-    per SM, at most 2048 threads per SM), and no more than the rows need."""
-    from tpu_debruijn_torch.kernels.pointer_jump import rank_loop_grid
+    per SM, at most 2048 threads per SM), and no more than the rows need;
+    then a loop over more rows than the grid has threads."""
+    from tpu_debruijn_torch.kernels.pointer_jump import LOOP_THREADS, rank_loop_grid
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     resident = rank_loop_grid(1 << 30)
-    assert resident % sms == 0 and 1 <= resident // sms <= 2048 // 256
-    for m in (1, 255, 256, 257, 144_769, 1 << 20, 9_283_244):
-        assert rank_loop_grid(m) == min(-(-m // 256), resident)
+    assert resident % sms == 0 and 1 <= resident // sms <= 2048 // LOOP_THREADS
+    for m in (1, 255, 1023, 1024, 1025, 144_769, 1 << 20, 9_283_244):
+        assert rank_loop_grid(m) == min(-(-m // LOOP_THREADS), resident)
     # a loop as wide as the card, every block resident at once
     rng = np.random.default_rng(9)
-    x = _carry(rng, _lists(rng, 256 * resident + 77, 3)).to(cuda)
+    x = _carry(rng, _lists(rng, LOOP_THREADS * resident + 77, 3)).to(cuda)
     got, ran = rank_loop(x, 30)
     want, t = rank_loop_plain(x, 30)
     torch.cuda.synchronize()

@@ -1,23 +1,18 @@
-// Pointer jumping: a successor walk through a fixed table (two kernels, by
-// table size), and the pointer-doubling loop of chain linking's list ranking
-// as one persistent launch.
+// Pointer jumping: a successor walk through a fixed table, and the
+// pointer-doubling loop of chain linking's list ranking as one persistent
+// launch.
 //
 // successor_walk replaces the Pallas probe scripts/probe_pallas_gather.py::k4
 // (`steps` hops of s <- succ[s] through the ORIGINAL table, -1 terminal).  The
-// table is read-only, so a whole walk is one launch.  Each hop is a load that
-// depends on the one before, so the walk is bound by load latency, not bytes:
-// 18 hops of a 2^18-entry table move 2 MB (0.6 us at 3.35 TB/s) but take 18
-// dependent round trips per element.
-// - successor_walk_kernel (any size): one thread per element, the hops in a
-//   register loop through L2 (a 2^18-entry table, 1 MB, stays there).
-// - successor_walk_cluster_kernel (up to 2^18 entries): a cluster of 8 blocks
-//   first copies the whole table into its blocks' shared memory, one
-//   power-of-two slice per block, by TMA bulk copies; after cluster.sync()
-//   every hop is a distributed-shared-memory load (ld.shared::cluster through
-//   map_shared_rank: slice = s >> log2, offset = s & mask) that never leaves
-//   the cluster's SMs.  Each thread keeps kWalks walks in flight, interleaved,
-//   to cover the latency of the SM-to-SM network.  The copy costs one read of
-//   the table per cluster, out of L2.
+// table is read-only, so the whole walk is one launch, one thread per element,
+// with the hops in a register loop; a 2^18-entry table (1 MB) stays in L2.
+// Each hop is a load that depends on the one before: 18 hops of a 2^18-entry
+// table move 2 MB (0.6 us at 3.35 TB/s) but take 18 dependent L2 round trips
+// per element and one random 32-byte L2 sector per hop, and the sectors bound
+// it.  Walking the table in a thread block cluster's distributed shared
+// memory instead (8 blocks, each holding a slice, hops by ld.shared::cluster)
+// was measured 2.5x slower on the H100: random 4-byte loads across the
+// SM-to-SM network run at a third of L2's sector rate (PERF.md, PR 5).
 //
 // rank_loop replaces the loop of tpu_debruijn/compress.py::_rank_all (the
 // lax.while_loop at compress.py:277-297, plain XLA; the probe above was
@@ -25,37 +20,34 @@
 // compress.py:281-295 on the (m, 4) int32 carry [succ, dist, mnmo, end], with
 // JAX's condition kept on the card: with early_exit the loop stops after the
 // first round whose result has no succ >= 0.  One cooperative launch runs the
-// whole loop: a grid of resident blocks strides over the rows, and
-// cooperative_groups' grid barrier separates the rounds.  A round reads each
-// row and its successor's row with one 16-byte L2 load each (__ldcg: a row
-// that another block wrote in the round before must not come from a stale L1
-// line) and writes to the other buffer: rounds are double-buffered, because an
-// in-place update would let dist and the min lane depend on scheduling.  Each
-// round has its own convergence word (state[t], zeroed before the launch), so
-// no word is ever reset: a block with an open row sets it, and after the
-// barrier every block reads it and all leave together.  After an even count
-// of rounds the result is in `spare`, and each thread copies back the rows it
-// wrote, so the result always ends in `out`; state[max_rounds] receives the
-// count of rounds run.  Bound on the H100: the carry read and written once is
-// 32 bytes a row, but the loop is a chain of dependent rounds; its latency
-// floor is rounds x (one dependent L2 load + one grid barrier), which
-// latency_floor_kernel measures with the same grid.
+// whole loop: a grid of resident blocks strides over the rows, every thread
+// owning the same rows in every round, and a grid barrier separates the
+// rounds.  Bound on the H100: the carry read and written once is 32 bytes a
+// row, but the rounds are a chain of dependent steps, so its floor is rounds x
+// (one dependent L2 load + one grid barrier), which latency_floor_kernel
+// measures on the same grid.  The design cuts what a round adds to that:
+// - a round reads only the successor's row, with one 16-byte L2 load (__ldcg:
+//   a row that another block wrote in the round before must not come from a
+//   stale L1 line); each thread keeps its first row in registers;
+// - the barrier carries the loop condition: each block arrives on its own
+//   word per round (state[t], zeroed before the launch, so no word is ever
+//   reset) with one atomic add that also counts the blocks with an open row,
+//   and every block leaves with the sum, so no flag is stored or read apart;
+// - blocks of 1024 threads, so fewer blocks arrive on each word.
+// Rounds are double-buffered, because an in-place update would let dist and
+// the min lane depend on scheduling.  After an even count of rounds the
+// result is in `spare`, and each thread copies back its own rows, so the
+// result always ends in `out`; state[max_rounds] receives the count of rounds
+// run.
 
 #include <climits>
 #include <cstdint>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWalkThreads = 256;
-constexpr int kLoopThreads = 256;
-constexpr int kClusterBlocks = 8;
-constexpr int kClusterThreads = 1024;
-constexpr int kWalks = 2;
-constexpr int kMaxSliceLog2 = 15;  // 2^15 int32 = 128 KB of shared memory a block
+constexpr int kLoopThreads = 1024;
 constexpr int kMaxDevices = 64;
 
 __global__ void successor_walk_kernel(const int32_t* __restrict__ succ,
@@ -69,95 +61,41 @@ __global__ void successor_walk_kernel(const int32_t* __restrict__ succ,
   out[i] = s;
 }
 
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__global__ void __launch_bounds__(kClusterThreads)
-successor_walk_cluster_kernel(const int32_t* __restrict__ succ, int64_t m,
-                              int steps, int slice_log2,
-                              int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) int32_t slice[];
-  __shared__ uint64_t bar;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int64_t len = (int64_t)1 << slice_log2;
-  const int64_t lo = (int64_t)cluster.block_rank() * len;
-  const int64_t n = lo < m ? (m - lo < len ? m - lo : len) : 0;
-  const int64_t bulk = n & ~(int64_t)3;  // whole 16-byte units go by TMA
-  const uint32_t b = shared_addr(&bar);
+// Round t's grid barrier: thread 0 of each block adds 1, plus 2^16 if the
+// block has an open row, to `word` and waits until every block has arrived.
+// Returns whether any block had an open row.  The blocks must be co-resident
+// (a cooperative launch) and fewer than 2^16.
+__device__ __forceinline__ bool grid_barrier_or(uint32_t* word, bool open) {
+  __shared__ uint32_t seen;
+  const bool any = __syncthreads_or(open);
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    __threadfence();  // the block's rows before its arrival
+    atomicAdd(word, any ? 0x10001u : 1u);
+    uint32_t v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(word) : "memory");
+    } while ((v & 0xFFFFu) < gridDim.x);
+    __threadfence();
+    seen = v;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if (bulk) {
-      const uint32_t bytes = (uint32_t)(bulk * 4);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(b), "r"(bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];"
-          ::"r"(shared_addr(slice)), "l"(succ + lo), "r"(bytes), "r"(b)
-          : "memory");
-    } else {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(b) : "memory");
-    }
-  }
-  for (int64_t j = bulk + threadIdx.x; j < n; j += blockDim.x) slice[j] = succ[lo + j];
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(b) : "memory");
-  cluster.sync();  // every slice of the table is in place
-
-  const int32_t last = (int32_t)(m - 1);
-  const uint32_t mask = (uint32_t)len - 1;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i0 < m;
-       i0 += kWalks * stride) {
-    int32_t s[kWalks];
-#pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
-      const int64_t i = i0 + w * stride;
-      s[w] = i < m ? __ldg(succ + i) : -1;
-    }
-    for (int t = 0; t < steps; ++t) {
-      bool open = false;
-#pragma unroll
-      for (int w = 0; w < kWalks; ++w) {
-        if (s[w] >= 0) {
-          const uint32_t k = (uint32_t)min(s[w], last);
-          s[w] = cluster.map_shared_rank(slice, k >> slice_log2)[k & mask];
-          open |= s[w] >= 0;
-        }
-      }
-      if (!open) break;
-    }
-#pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
-      const int64_t i = i0 + w * stride;
-      if (i < m) out[i] = s[w];
-    }
-  }
-  cluster.sync();  // no block leaves while another may still read its slice
+  return seen >> 16;
 }
 
 __global__ void __launch_bounds__(kLoopThreads)
 rank_loop_kernel(const int4* x, int4* out, int4* spare, int64_t m,
-                 int max_rounds, int early_exit, int32_t* state) {
-  cg::grid_group grid = cg::this_grid();
+                 int max_rounds, int early_exit, uint32_t* state) {
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int4 mine = first < m ? __ldcg(x + first) : make_int4(-1, 0, 0, 0);
   int t = 0;
-  while (t < max_rounds) {
+  bool more = true;
+  while (t < max_rounds && more) {
     const int4* src = t == 0 ? x : (t & 1 ? out : spare);
     int4* dst = t & 1 ? spare : out;
     bool open = false;
     for (int64_t i = first; i < m; i += stride) {
-      int4 r = __ldcg(src + i);
+      int4 r = i == first ? mine : __ldcg(src + i);
       if (r.x >= 0) {
         const int4 g = __ldcg(src + (r.x < m ? (int64_t)r.x : m - 1));
         r.x = g.x;
@@ -166,12 +104,12 @@ rank_loop_kernel(const int4* x, int4* out, int4* spare, int64_t m,
         r.w = g.w;
       }
       dst[i] = r;
+      if (i == first) mine = r;
       open |= r.x >= 0;
     }
-    if (__syncthreads_or(open) && threadIdx.x == 0) state[t] = 1;
-    grid.sync();
+    const bool any = grid_barrier_or(state + t, open);
     ++t;
-    if (early_exit && __ldcg(state + t - 1) == 0) break;
+    more = !early_exit || any;
   }
   // an even count ends in spare; every thread wrote the same rows each round
   if ((t & 1) == 0)
@@ -181,14 +119,13 @@ rank_loop_kernel(const int4* x, int4* out, int4* spare, int64_t m,
 
 __global__ void __launch_bounds__(kLoopThreads)
 latency_floor_kernel(const int32_t* __restrict__ chain, int rounds, int barrier,
-                     int32_t* __restrict__ sink) {
-  cg::grid_group grid = cg::this_grid();
+                     uint32_t* state) {
   int32_t v = 0;
   for (int t = 0; t < rounds; ++t) {
     v = __ldcg(chain + v);
-    if (barrier) grid.sync();
+    if (barrier) grid_barrier_or(state + t, v == INT_MIN);
   }
-  if (v == INT_MIN) *sink = v;  // keeps the chain of loads
+  if (v == INT_MIN) state[0] = v;  // keeps the chain of loads
 }
 
 // The cooperative grid for m rows: the blocks of rank_loop_kernel that fit on
@@ -225,65 +162,21 @@ extern "C" int tdb_successor_walk(const void* succ, int64_t m, int steps,
   return (int)cudaGetLastError();
 }
 
-// succ (16-byte aligned), out: (m,) int32, 0 < m <= 8 * 2^15.  As many
-// clusters as are resident at once (queried once per device and slice size),
-// and no more than the walks need.
-extern "C" int tdb_successor_walk_cluster(const void* succ, int64_t m,
-                                          int steps, void* out, void* stream) {
-  static int resident[kMaxDevices][kMaxSliceLog2 + 1];
-  if (m == 0) return 0;
-  int slice_log2 = 2;
-  while (((int64_t)kClusterBlocks << slice_log2) < m) ++slice_log2;
-  if (slice_log2 > kMaxSliceLog2) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kClusterBlocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.blockDim = dim3(kClusterThreads);
-  config.dynamicSmemBytes = sizeof(int32_t) << slice_log2;
-  config.stream = (cudaStream_t)stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int& fit = resident[dev][slice_log2];
-  if (fit == 0) {
-    e = cudaFuncSetAttribute(successor_walk_cluster_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)(sizeof(int32_t) << kMaxSliceLog2));
-    config.gridDim = dim3(kClusterBlocks);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&fit, successor_walk_cluster_kernel, &config);
-    if (e != cudaSuccess) return (int)e;
-    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  const int64_t per_cluster = (int64_t)kClusterBlocks * kClusterThreads * kWalks;
-  const int64_t need = (m + per_cluster - 1) / per_cluster;
-  config.gridDim = dim3((unsigned)(kClusterBlocks * (need < fit ? need : fit)));
-  e = cudaLaunchKernelEx(&config, successor_walk_cluster_kernel, (const int32_t*)succ,
-                         m, steps, slice_log2, (int32_t*)out);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 // The grid rank_loop launches for m rows, into *blocks.
 extern "C" int tdb_rank_loop_grid(int64_t m, void* blocks) {
   return loop_grid(m, (unsigned*)blocks);
 }
 
 // x, out, spare: (m, 4) int32, 16-byte aligned, distinct; x is only read.
-// state: max_rounds + 1 int32; state[t] becomes 1 iff round t left a pointer
-// open, state[max_rounds] the count of rounds run.  max_rounds >= 1.
+// state: max_rounds + 1 uint32, zeroed here; state[t] is round t's barrier
+// word (blocks + 2^16 x blocks with an open row), state[max_rounds] receives
+// the count of rounds run.  max_rounds >= 1.
 extern "C" int tdb_rank_loop(const void* x, void* out, void* spare, int64_t m,
                              int max_rounds, int early_exit, void* state,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (max_rounds < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(state, 0, sizeof(int32_t) * (max_rounds + 1), s);
+  cudaError_t e = cudaMemsetAsync(state, 0, sizeof(uint32_t) * (max_rounds + 1), s);
   if (e != cudaSuccess || m == 0) return (int)e;
   unsigned grid = 0;
   const int g = loop_grid(m, &grid);
@@ -291,7 +184,7 @@ extern "C" int tdb_rank_loop(const void* x, void* out, void* spare, int64_t m,
   const int4* xa = (const int4*)x;
   int4* oa = (int4*)out;
   int4* sa = (int4*)spare;
-  int32_t* st = (int32_t*)state;
+  uint32_t* st = (uint32_t*)state;
   void* args[] = {&xa, &oa, &sa, &m, &max_rounds, &early_exit, &st};
   e = cudaLaunchCooperativeKernel((const void*)rank_loop_kernel, dim3(grid),
                                   dim3(kLoopThreads), args, 0, s);
@@ -300,20 +193,22 @@ extern "C" int tdb_rank_loop(const void* x, void* out, void* spare, int64_t m,
 }
 
 // A measure of rank_loop's latency floor: `rounds` rounds of one dependent L2
-// load per thread (chain[v], from v = 0), each followed by a grid barrier when
-// `barrier`, on rank_loop's grid for m rows.  chain: int32, every value a valid
-// index; sink: one int32, written only if a value is INT_MIN.
+// load per thread (chain[v], from v = 0), each followed by rank_loop's grid
+// barrier when `barrier`, on rank_loop's grid for m rows.  chain: int32, every
+// value a valid index; state: rounds + 1 uint32, zeroed here.
 extern "C" int tdb_latency_floor(const void* chain, int64_t m, int rounds,
-                                 int barrier, void* sink, void* stream) {
+                                 int barrier, void* state, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(state, 0, sizeof(uint32_t) * (rounds + 1), s);
+  if (e != cudaSuccess) return (int)e;
   unsigned grid = 0;
   const int g = loop_grid(m, &grid);
   if (g != 0) return g;
   const int32_t* c = (const int32_t*)chain;
-  int32_t* k = (int32_t*)sink;
-  void* args[] = {&c, &rounds, &barrier, &k};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)latency_floor_kernel,
-                                              dim3(grid), dim3(kLoopThreads), args,
-                                              0, (cudaStream_t)stream);
+  uint32_t* st = (uint32_t*)state;
+  void* args[] = {&c, &rounds, &barrier, &st};
+  e = cudaLaunchCooperativeKernel((const void*)latency_floor_kernel, dim3(grid),
+                                  dim3(kLoopThreads), args, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,8 @@ launches) in ``csrc/list_rank.cu``.
 - :func:`successor_walk` replaces the Pallas probe
   ``scripts/probe_pallas_gather.py::k4``: ``steps`` hops of
   ``s <- succ[s]`` through the original, fixed table (-1 is terminal).  It
-  is a walk, not pointer doubling, so the whole walk is one launch: a table
-  of up to :data:`CLUSTER_WALK_MAX` entries is walked in a thread block
-  cluster's distributed shared memory, a larger one through L2.
+  is a walk, not pointer doubling, so the whole walk is one launch, one
+  thread per element, its hops through L2.
 - :func:`rank_loop` is the loop that probe was designed for: the
   ``lax.while_loop`` of ``compress._rank_all`` on the (m, 4) int32 carry
   ``[succ, dist, mnmo, end]``, with the update rule of
@@ -25,11 +24,10 @@ launches) in ``csrc/list_rank.cu``.
   :func:`rank_lists_plain` is the doubling loop; :func:`rank_lists_rulers_plain`
   transcribes the kernels' algorithm step for step.
 
-All of them are bound by the latency of dependent loads on the H100.  Each
-wrapper launches its kernel for a CUDA tensor and runs the plain PyTorch
-version (``*_plain``) for a CPU tensor; ``.launches`` counts kernel launches
-(``successor_walk.cluster_launches`` those of the cluster kernel).  ``dist``
-adds in int32 and wraps on overflow in both versions.
+All of them are bound by dependent loads on the H100.  Each wrapper launches
+its kernel for a CUDA tensor and runs the plain PyTorch version (``*_plain``)
+for a CPU tensor; ``.launches`` counts kernel launches.  ``dist`` adds in int32
+and wraps on overflow in both versions.
 """
 
 from __future__ import annotations
@@ -62,9 +60,8 @@ _EXPAND_ARGTYPES = [
 ]
 # states per ruler on average (a power of two), chosen on the H100: PERF.md
 RULER_SPACING = 64
-# the largest table a cluster of 8 blocks holds in power-of-two slices of
-# 128 KB of shared memory each (csrc/pointer_jump.cu)
-CLUSTER_WALK_MAX = 8 << 15
+# threads per block of rank_loop's cooperative launch (csrc/pointer_jump.cu)
+LOOP_THREADS = 1024
 _M32 = 0xFFFFFFFF
 _INT32_MAX = 0x7FFFFFFF
 
@@ -81,45 +78,29 @@ def successor_walk_plain(succ: torch.Tensor, steps: int) -> torch.Tensor:
 
 def successor_walk(succ: torch.Tensor, steps: int) -> torch.Tensor:
     """(M,) int32 successors (-1 terminal) -> where each element stands after
-    ``steps`` further hops through the same table.  On CUDA a table of up to
-    :data:`CLUSTER_WALK_MAX` entries is walked in a cluster's shared memory,
-    a larger one through L2."""
+    ``steps`` further hops through the same table."""
     if succ.device.type == "cpu":
         return successor_walk_plain(succ, steps)
     if succ.device.type != "cuda":
         raise ValueError(f"successor_walk: no kernel for device {succ.device}")
-    return walk_kernel(succ, steps, cluster=succ.shape[0] <= CLUSTER_WALK_MAX)
-
-
-def walk_kernel(succ: torch.Tensor, steps: int, cluster: bool) -> torch.Tensor:
-    """One of :func:`successor_walk`'s two kernels on a CUDA table, chosen by
-    the caller: the cluster kernel (``cluster``, up to
-    :data:`CLUSTER_WALK_MAX` entries) or the L2 kernel."""
     if succ.dtype != torch.int32 or succ.dim() != 1:
         raise ValueError("successor_walk: succ must be (M,) int32")
     if steps < 0:
         raise ValueError("successor_walk: steps must be >= 0")
-    if cluster and succ.shape[0] > CLUSTER_WALK_MAX:
-        raise ValueError(f"successor_walk: a cluster holds at most {CLUSTER_WALK_MAX} entries")
     succ = succ.contiguous()
-    if succ.data_ptr() % 16:  # the cluster kernel copies the table in 16-byte units
-        succ = succ.clone()
     out = torch.empty_like(succ)
     if succ.numel() == 0:
         return out
-    name = "tdb_successor_walk_cluster" if cluster else "tdb_successor_walk"
-    _build.check(name, _build.library().function(name, _WALK_ARGTYPES)(
-        succ.data_ptr(), succ.shape[0], steps, out.data_ptr(), _build.stream_ptr(succ.device),
+    fn = _build.library().function("tdb_successor_walk", _WALK_ARGTYPES)
+    _build.check("tdb_successor_walk", fn(
+        succ.data_ptr(), succ.shape[0], steps, out.data_ptr(),
+        _build.stream_ptr(succ.device),
     ))
-    if cluster:
-        successor_walk.cluster_launches += 1
-    else:
-        successor_walk.launches += 1
+    successor_walk.launches += 1
     return out
 
 
 successor_walk.launches = 0
-successor_walk.cluster_launches = 0
 
 
 def rank_round_plain(x: torch.Tensor):
