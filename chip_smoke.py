@@ -765,34 +765,6 @@ def same_chains(a, b) -> bool:
     return per_item and a.n_unitigs == b.n_unitigs and per_unitig
 
 
-def launch_counters() -> dict:
-    """Where each kernel counts its launches, by the name of its row:
-    (wrapper, attribute)."""
-    from tpu_debruijn_torch import kernels as KN
-
-    return {
-        "canonical": (KN.canonicalize, "launches"),
-        "extract_canonical": (KN.extract_canonical, "launches"),
-        "gather_rows": (KN.gather_rows, "launches"),
-        "take_along_axis": (KN.take_along_axis, "launches"),
-        "successor_walk": (KN.successor_walk, "launches"),
-        "rank_loop": (KN.rank_loop, "launches"),
-        "rank_lists": (KN.rank_lists, "launches"),
-    }
-
-
-def reset_counts(counters) -> None:
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
-    counters["rank_lists"][0].round_path = 0
-
-
-def read_counts(counters) -> dict:
-    counts = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    counts["rank_lists.round_path"] = counters["rank_lists"][0].round_path
-    return counts
-
-
 def phase_ordered(reads, nodes_main, counters, device) -> dict:
     """The read-ordered path on the main path's reads: obs_min table ->
     ordered compress -> unitigs.  Kernel launches are counted over this run
@@ -800,9 +772,11 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     Each linker's rounds are the device count of its one rank_loop launch."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
-    from tpu_debruijn_torch.kernels import rank_loop
 
-    reset_counts(counters)
+    rank_loop = counters["rank_loop"]
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
     torch.cuda.reset_peak_memory_stats()
     t = [time.perf_counter()]
     table = T.filter_kmers([(r, 0, 0) for r in reads], k=K, stranded=False, min_obs=2,
@@ -816,7 +790,8 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     t.append(time.perf_counter())
     nodes = C.assemble_chains(table.spec, table.kmers, chains, u_exts, contrib, table.counts)
     t.append(time.perf_counter())
-    launches = read_counts(counters)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
     peak = torch.cuda.max_memory_allocated()
     rounds_ordered = int(rank_loop.last_rounds)
 
@@ -1004,15 +979,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # every wrapper counts its launches; the kernels each path must launch
-    counters = launch_counters()
+    counters = {
+        "canonical": KN.canonicalize, "extract_canonical": KN.extract_canonical,
+        "gather_rows": KN.gather_rows, "take_along_axis": KN.take_along_axis,
+        "successor_walk": KN.successor_walk, "rank_loop": KN.rank_loop,
+        "rank_lists": KN.rank_lists,
+    }
     on_path = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3: the main path
         genome = make_genome(rng, ECOLI_LEN, repeat_rich=False)
-        reset_counts(counters)
+        for fn in counters.values():
+            fn.launches = 0
+        KN.rank_lists.round_path = 0
         main, reads, nodes_main, table = phase_assembly("ecoli", rng, genome, tmp, check_substrings=True)
-        by_path["quick_start"] = read_counts(counters)
+        by_path["quick_start"] = {name: fn.launches for name, fn in counters.items()}
+        by_path["quick_start"]["rank_lists.round_path"] = KN.rank_lists.round_path
         main["rank_loop_rounds"] = int(KN.rank_loop.last_rounds)
         main["gather_rows_launches"]["resolve_edges"] = resolve_edges_gathers(table)
         del table

@@ -22,10 +22,10 @@ with the modules they run: ``bases``, ``io`` (FASTA/FASTQ reading),
 ``kmer``, ``exts``, ``sorting``, ``filter`` (``data_reduce`` 'label_first',
 'min', 'obs_min' and 'none'), ``compress`` (default policy; ``link_chains``
 and ``link_chains_ordered``), ``dna`` (``PackedSeqSet``), ``graph``
-(``BaseGraph``, link table, GFA export), ``convert`` and the six kernels in
-``kernels/``: the two kmer kernels, and the gathers and pointer jumps that
-replace the Pallas gather probes, among them the doubling round of chain
-linking.
+(``BaseGraph``, link table, GFA export), ``convert`` and the kernels in
+``kernels/``: the two kmer kernels, the gathers and pointer jumps that
+replace the Pallas gather probes, among them the doubling loop of chain
+linking in one launch, and the ruling-set list ranking.
 
 Not ported yet: ``filter_kmers_streaming`` and the block merges, the
 summarizer/policy layer (``data_reduce`` 'max' and 'sum', set and

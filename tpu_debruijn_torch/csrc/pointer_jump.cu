@@ -12,7 +12,7 @@
 // it.  Walking the table in a thread block cluster's distributed shared
 // memory instead (8 blocks, each holding a slice, hops by ld.shared::cluster)
 // was measured 2.5x slower on the H100: random 4-byte loads across the
-// SM-to-SM network run at a third of L2's sector rate (PERF.md, PR 5).
+// SM-to-SM network run at a third of L2's sector rate (PERF.md).
 //
 // rank_loop replaces the loop of tpu_debruijn/compress.py::_rank_all (the
 // lax.while_loop at compress.py:277-297, plain XLA; the probe above was
