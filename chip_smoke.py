@@ -52,7 +52,24 @@ Phases; any failure raises and the script exits non-zero:
 5. A repeat-rich 1 Mb genome tiled from 12 chunks of 300 bp, 30x: the same
    checks as phase 3 but the substring one.
 6. The CUDA path against the CPU path on a small input: identical tables,
-   unitig lists and GFA bytes.
+   unitig lists and GFA bytes; and the colored streaming count
+   (filter_kmers_streaming(colored=True), four colors, one negative):
+   identical tables, pair labels and splits.
+7. The corpus path on phase 3's FASTQ file: stream_fastx_blocks ->
+   filter_kmers_streaming(merge="device") in bench.py's 64 batches, the
+   table equal to phase 3's bit for bit; the same reads as per-read tuples
+   through the host merge with memory_gb=1, the table equal and the peak
+   device memory under 1e9 bytes; compress_kmers on the streamed table,
+   the unitigs equal to phase 3's; the device merge at K = 63 on phase 5's
+   reads against one-batch filter_kmers.  Launches are counted from the
+   first streaming run through the compress ("corpus" in the kernels'
+   line); prints decode and count + merge seconds, chunks, seconds per
+   chunk, observations per second, table kmers and peak device bytes, the
+   host merge's seconds by function under cProfile, the device busy time
+   of the streamed count under torch.profiler, the join merge against a
+   concatenate-and-sort merge at the last merge's shape, and a pinned
+   against a pageable upload of one packed chunk.  count_kmers' peak bytes
+   a read on random reads must stay under filter.count_bytes_per_read.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -705,9 +722,9 @@ def check_assembly(table, nodes, graph, gfa_path: str, genome=None) -> None:
 
 
 def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
-    """The quick start on a read set of ``genome``; returns (info, reads,
-    unitigs, table).  gather_rows must launch in the count and compress
-    stages."""
+    """The quick start on a read set of ``genome``, written to
+    ``tmp/{name}.fq``; returns (info, reads, unitigs, table).  gather_rows
+    must launch in the count and compress stages."""
     reads = sample_reads(rng, genome, COVERAGE, READ_LEN)
     n_obs = len(reads) * (READ_LEN - K + 1)
     fq = os.path.join(tmp, f"{name}.fq")
@@ -727,7 +744,6 @@ def phase_assembly(name, rng, genome, tmp, check_substrings: bool):
         "count_obs_per_s": n_obs / stages["count"], "peak_device_bytes": peak,
         "gather_rows_launches": gathers,
     }
-    os.remove(fq)
     return info, reads_in, nodes, table
 
 
@@ -756,6 +772,11 @@ def profile_device_ms(fn, top: int = 6) -> dict:
            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda o: -o[1])
     return {"busy": sum(o[1] for o in ops), "top": ops[:top]}
+
+
+def same_unitigs(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and x[1:] == y[1:] for x, y in zip(a, b))
 
 
 def same_chains(a, b) -> bool:
@@ -801,9 +822,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     check(rank_loop.launches == before + 1, "the plain linker's ranking took more than one rank_loop")
     rounds_plain = int(rank_loop.last_rounds)
     check(same_chains(chains, plain[0]), "ordered chains != plain link_chains chains")
-    check(len(nodes) == len(nodes_main) and all(
-        np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nodes, nodes_main)
-    ), "ordered-path unitigs != the quick start's")
+    check(same_unitigs(nodes, nodes_main), "ordered-path unitigs != the quick start's")
     edges = C.resolve_edges(table.spec, False, table.kmers, table.exts)
     n_iv = int(C.discovery_intervals(edges["partner_l"], edges["partner_r"], table.data)[-1].sum())
     n = len(table)
@@ -846,11 +865,249 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     (tc, nc, gc), (tp, np_, gp) = out["cuda"], out["cpu"]
     check(tc.keys() == tp.keys() and all(np.array_equal(tc[x], tp[x]) for x in tc),
           "CUDA and CPU tables differ")
-    check(len(nc) == len(np_) and all(
-        np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(nc, np_)
-    ), "CUDA and CPU unitigs differ")
+    check(same_unitigs(nc, np_), "CUDA and CPU unitigs differ")
     check(gc == gp, "CUDA and CPU GFA bytes differ")
     log(f"phase 6: CUDA == CPU on {len(tc['kmers'])} kmers, {len(nc)} unitigs, {len(gc)} GFA bytes")
+
+    # the colored streaming count: four colors, one of them negative (it
+    # sorts last within its kmer, as a uint32)
+    import tpu_debruijn_torch as T
+
+    reads = [(r, 0, (i % 4) - 1) for i, r in enumerate(T.read_fastq(fq))]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        table, pair_label, split = T.filter_kmers_streaming(
+            reads, K, min_obs=2, data_reduce="none", merge="device", colored=True,
+            chunk_reads=256, device=dev)
+        got[dev] = (table_to_numpy(table), pair_label.cpu().numpy(), split.cpu().numpy())
+    (tc, lc, sc), (tp, lp, sp) = got["cuda"], got["cpu"]
+    check(all(np.array_equal(tc[x], tp[x]) for x in tc), "colored: CUDA and CPU tables differ")
+    check(np.array_equal(lc, lp) and np.array_equal(sc, sp), "colored: CUDA and CPU pairs differ")
+    check(len(tc["kmers"]) > 0 and (lc == -1).any(), "colored: no kmer or no negative color")
+    log(f"phase 6: colored streaming CUDA == CPU on {len(tc['kmers'])} kmers, {len(lc)} pairs")
+
+
+def timed_blocks(blocks, decode_s: list, chunk_s: list):
+    """Yield the items of ``blocks``, appending the seconds each took to
+    make to ``decode_s`` and the seconds the consumer spent on each before
+    asking for the next to ``chunk_s``."""
+    it = iter(blocks)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        t1 = time.perf_counter()
+        decode_s.append(t1 - t0)
+        yield item
+        chunk_s.append(time.perf_counter() - t1)
+
+
+def concat_sort_merge(keys, exts, counts, c_keys, c_exts, c_counts):
+    """merge_unique's result by the other form: concatenate both tables,
+    sort, and reduce each run (counts summed and saturated, exts OR'd)."""
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import sorting as S
+    from tpu_debruijn_torch.kernels import gather_rows
+
+    keys = torch.cat([keys, c_keys])
+    perm = S.lex_argsort(keys)
+    keys = gather_rows(keys, perm)
+    starts, ends = TF.run_bounds(S.run_starts(keys))
+    counts = TF._run_sum(gather_rows(torch.cat([counts, c_counts]), perm), ends)
+    exts = TF._run_or8(gather_rows(torch.cat([exts, c_exts]), perm), ends)
+    return gather_rows(keys, starts), exts, counts.clamp(max=TF.COUNT_MAX).to(torch.int32)
+
+
+def phase_corpus(fq: str, reads, table_main: dict, nodes_main, rich_reads, counters,
+                 device="cuda") -> dict:
+    """Phase 7: the corpus path on phase 3's FASTQ file and reads, against
+    phase 3's table and unitigs; launches counted from (a) through (c)."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import table_to_numpy
+
+    def same_table(table, want: dict) -> bool:
+        got = table_to_numpy(table)
+        return all(np.array_equal(got[x], want[x]) for x in ("kmers", "exts", "counts", "data"))
+
+    n_reads = len(reads)
+    chunk = -(-n_reads // 64)  # bench.py's corpus model: 64 count batches
+    kw = dict(stranded=False, min_obs=2)
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
+
+    # (a) FASTQ -> packed blocks -> the device merge, 64 chunks
+    decode_s, chunk_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_a = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    table = T.filter_kmers_streaming(
+        timed_blocks(T.stream_fastx_blocks(fq, block_reads=chunk), decode_s, chunk_s), K,
+        data_reduce="none", merge="device", chunk_reads=chunk, device=device, **kw)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated()
+    check(len(chunk_s) == 64, f"the device merge took {len(chunk_s)} chunks, not 64")
+    check(same_table(table, table_main), "the streamed table (device merge) != phase 3's")
+    n_obs = sum(len(r) - K + 1 for r in reads)
+    out = {
+        "reads": n_reads, "chunk_reads": chunk, "chunks": len(chunk_s), "observations": n_obs,
+        "table_kmers": len(table),
+        "device_merge": {
+            "decode_s": sum(decode_s), "decode_s_first": decode_s[0],
+            "count_merge_s": wall_a - sum(decode_s), "wall_s": wall_a,
+            "chunk_s_median": float(np.median(chunk_s)), "chunk_s_max": max(chunk_s),
+            "chunk_s_first": chunk_s[0], "count_merge_obs_per_s": n_obs / (wall_a - sum(decode_s)),
+            "peak_device_bytes": peak_a, "peak_above_held_bytes": peak_a - held_a,
+        },
+    }
+    log("phase 7 (a): device merge from the FASTQ file equals phase 3's table: "
+        + json.dumps(out["device_merge"]))
+
+    # (b) per-read tuples through the host merge, under a 1 GB budget: the
+    # bytes it allocates above what is held when it starts ((a)'s table)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    table_b = T.filter_kmers_streaming(((r, 0, 0) for r in reads), K, data_reduce="label_first",
+                                       memory_gb=1, read_len_cap=READ_LEN, device=device, **kw)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    peak_b = torch.cuda.max_memory_allocated()
+    chunk_b = int(1e9 / TF.count_bytes_per_read(TF.KmerSpec(K), READ_LEN))
+    check(same_table(table_b, table_main), "the streamed table (host merge) != phase 3's")
+    check(peak_b - held <= 1e9,
+          f"the host merge's peak device memory {peak_b - held} above {held} exceeds memory_gb=1")
+    out["host_merge"] = {"wall_s": wall_b, "chunk_reads": chunk_b, "chunks": -(-n_reads // chunk_b),
+                         "peak_device_bytes": peak_b, "held_bytes": held,
+                         "peak_above_held_bytes": peak_b - held,
+                         "reckoned_peak_bytes": chunk_b * TF.count_bytes_per_read(TF.KmerSpec(K), READ_LEN)}
+    del table_b
+    log("phase 7 (b): host merge of per-read tuples under memory_gb=1 equals phase 3's table: "
+        + json.dumps(out["host_merge"]))
+    # (c) compress the streamed table
+    t0 = time.perf_counter()
+    nodes = T.compress_kmers(table, device=device)
+    torch.cuda.synchronize()
+    out["compress_s"] = time.perf_counter() - t0
+    check(same_unitigs(nodes, nodes_main), "the streamed table's unitigs != phase 3's")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+    out["launches"] = launches
+    del nodes
+    log(f"phase 7 (c): the streamed table compresses to phase 3's {len(nodes_main)} unitigs "
+        f"in {out['compress_s']:.3f} s; launches {json.dumps(launches)}")
+
+    # count_bytes_per_read against count_kmers' own peak on a chunk of
+    # random reads (every kmer distinct), the widths and modes (b) can take
+    gen = np.random.default_rng(0)
+    out["count_peak_per_read"] = []
+    for k_, dr in ((K, "label_first"), (K, "sum"), (63, "none"), (63, "sum"), (16, "sum")):
+        spec = TF.KmerSpec(k_)
+        host = gen.integers(0, 4, (20_000, 160)).astype(np.uint8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        z = torch.zeros(host.shape[0], dtype=torch.int32, device=device)
+        TF.count_kmers(spec, torch.from_numpy(host).to(device),
+                       torch.full_like(z, READ_LEN), z, z, stranded=False, min_obs=1,
+                       data_reduce=dr, report_all=False)
+        per_read = (torch.cuda.max_memory_allocated() - base) / host.shape[0]
+        reckoned = TF.count_bytes_per_read(spec, READ_LEN)
+        check(per_read <= reckoned, f"count_kmers took {per_read} bytes a read at K={k_} {dr}, "
+              f"count_bytes_per_read reckons {reckoned}")
+        out["count_peak_per_read"].append({"k": k_, "data_reduce": dr, "bytes": per_read,
+                                           "reckoned": reckoned})
+    log("phase 7: count_kmers' peak device bytes a read (150 bases) against "
+        "count_bytes_per_read: " + json.dumps(out["count_peak_per_read"]))
+
+    # where the host merge's time goes: the same run under cProfile
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(lambda: T.filter_kmers_streaming(
+        ((r, 0, 0) for r in reads), K, data_reduce="label_first", memory_gb=1,
+        read_len_cap=READ_LEN, device=device, **kw))
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    out["host_merge"]["cprofile_tottime_s"] = [
+        [f"{os.path.basename(f)}:{line}:{name}", tt] for (f, line, name), (_, _, tt, _, _) in top]
+    log("phase 7 (b): the host merge under cProfile, seconds by function: "
+        + json.dumps(out["host_merge"]["cprofile_tottime_s"]))
+
+    # the device time of the streamed count, its blocks decoded beforehand
+    blocks = list(T.stream_fastx_blocks(fq, block_reads=chunk))
+    stream = lambda: T.filter_kmers_streaming(iter(blocks), K, data_reduce="none",
+                                              merge="device", chunk_reads=chunk, device=device, **kw)
+    t0 = time.perf_counter()
+    stream()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_device_ms(stream, top=10)
+    out["device_merge"].update(count_merge_s_decoded=wall, device_busy_ms=prof["busy"],
+                               idle_share=1 - prof["busy"] / 1e3 / wall)
+    log(f"phase 7: the streamed count on decoded blocks: {wall:.3f} s, device busy "
+        f"{prof['busy']:.2f} ms ({1 - prof['busy'] / 1e3 / wall:.1%} idle); top: "
+        + json.dumps(prof["top"]))
+
+    # the merge at the last merge's shape: the whole table and one chunk,
+    # the join against concatenate-and-sort, in turns
+    first = blocks[0]
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    zeros = torch.zeros(first.packed.shape[0], dtype=torch.int32, device=device)
+    c = TF.count_kmers(TF.KmerSpec(K), TF.unpack_2bit(dev(first.packed)), dev(first.lengths), zeros, zeros,
+                       stranded=False, min_obs=1, data_reduce="none", report_all=False)
+    state = (table.kmers, table.exts, table.counts)
+    got = TF.merge_unique(*(t.clone() for t in state), c.kmers, c.exts, c.counts)
+    want = concat_sort_merge(*state, c.kmers, c.exts, c.counts)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), "the join != concatenate-and-sort")
+    del got, want
+    forms = {"join": lambda: TF.merge_unique(*state, c.kmers, c.exts, c.counts),
+             "concat_sort": lambda: concat_sort_merge(*state, c.kmers, c.exts, c.counts)}
+    merge_ms = {name: [] for name in forms}
+    for name in ("concat_sort", "join", "join", "concat_sort"):
+        merge_ms[name].append(time_ms(forms[name], iters=3))
+    out["merge_ms"] = {"table": len(table), "chunk": len(c), **merge_ms,
+                       "device": {name: profile_device_ms(fn)["busy"] for name, fn in forms.items()}}
+    log("phase 7: one merge of a chunk into the whole table (ms): " + json.dumps(out["merge_ms"]))
+
+    # one packed chunk's upload: pageable against a reused pinned buffer
+    pinned = torch.empty(first.packed.shape, dtype=torch.uint8).pin_memory()
+    host = np.ascontiguousarray(first.packed)
+
+    def via_pinned():
+        pinned.numpy()[:] = host
+        return pinned.to(device, non_blocking=True)
+
+    up = {"pageable": [], "pinned": []}
+    for name, fn in (("pageable", lambda: dev(host)), ("pinned", via_pinned),
+                     ("pinned", via_pinned), ("pageable", lambda: dev(host))):
+        up[name].append(time_ms(fn, iters=20))
+    out["upload_ms"] = {"bytes": host.nbytes, **up}
+    log("phase 7: one packed chunk's upload (ms): " + json.dumps(out["upload_ms"]))
+    del blocks, c, state, table
+
+    # (d) the device merge at K = 63 on phase 5's repeat-rich reads
+    k63 = 63
+    t0 = time.perf_counter()
+    streamed = T.filter_kmers_streaming(((r, 0, 0) for r in rich_reads), k63, data_reduce="none",
+                                        merge="device", chunk_reads=-(-len(rich_reads) // 64),
+                                        device=device, **kw)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    one = T.filter_kmers([(r, 0, 0) for r in rich_reads], k63, data_reduce="none", device=device, **kw)
+    check(len(one) > 0 and same_table(streamed, table_to_numpy(one)),
+          "the K = 63 device merge != one-batch filter_kmers")
+    out["k63"] = {"reads": len(rich_reads), "table_kmers": len(one), "wall_s": wall_d}
+    log(f"phase 7 (d): K = 63 device merge of {len(rich_reads)} repeat-rich reads in 64 chunks "
+        f"equals one-batch filter_kmers ({len(one)} kmers) in {wall_d:.3f} s")
+    return out
 
 
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
@@ -952,6 +1209,7 @@ def main(argv=None) -> int:
         return 0
 
     from tpu_debruijn_torch import kernels as KN
+    from tpu_debruijn_torch import table_to_numpy
     from tpu_debruijn_torch.io import native
     from tpu_debruijn_torch.kernels import _build
 
@@ -998,14 +1256,30 @@ def main(argv=None) -> int:
         by_path["quick_start"]["rank_lists.round_path"] = KN.rank_lists.round_path
         main["rank_loop_rounds"] = int(KN.rank_loop.last_rounds)
         main["gather_rows_launches"]["resolve_edges"] = resolve_edges_gathers(table)
+        table_main = table_to_numpy(table)
         del table
         log("phase 3 (main path): " + json.dumps(main))
 
         # phase 4: the read-ordered path on the same reads
         ordered = phase_ordered(reads, nodes_main, counters, "cuda")
         by_path["ordered"] = ordered["launches"]
-        del reads, nodes_main
         log("phase 4 (ordered path): " + json.dumps(ordered))
+
+        # phase 5
+        rich, rich_reads = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True),
+                                          tmp, False)[:2]
+        log("phase 5 (repeat-rich): " + json.dumps(rich))
+
+        # phase 6
+        phase_device_vs_cpu(rng, tmp)
+
+        # phase 7: the corpus path on phase 3's file and reads
+        corpus = phase_corpus(os.path.join(tmp, "ecoli.fq"), reads, table_main, nodes_main,
+                              rich_reads, counters, "cuda")
+        by_path["corpus"] = corpus.pop("launches")
+        del reads, nodes_main, rich_reads
+        log("phase 7 (corpus path): " + json.dumps({"device": smi, **corpus}))
+
         for path, launches in by_path.items():
             for name in on_path:
                 check(launches[name] > 0, f"the {path} path never launched kernel {name}")
@@ -1016,13 +1290,6 @@ def main(argv=None) -> int:
         for r in rows:
             r["launches_by_path"] = {path: by_path[path][r["name"]] for path in by_path}
             r["launches"] = sum(r["launches_by_path"].values())
-
-        # phase 5
-        rich = phase_assembly("repeat_rich", rng, make_genome(rng, 1_000_000, True), tmp, False)[0]
-        log("phase 5 (repeat-rich): " + json.dumps(rich))
-
-        # phase 6
-        phase_device_vs_cpu(rng, tmp)
 
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -385,3 +385,37 @@ def test_ordered_path_cuda_matches_cpu(cuda):
         out[str(dev)] = [t.cpu() for t in (table.data, chains.uid, chains.pos, chains.flip, chains.length)]
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 31, 63])
+def test_streaming_cuda_matches_cpu(cuda, k):
+    """filter_kmers_streaming on the card equals the CPU run: the device
+    merge of packed blocks (unpacked on the card) and of per-read tuples,
+    the colored count with a negative color, and the host merge."""
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import table_to_numpy
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 5000).astype(np.uint8)
+    rows = np.stack([genome[s : s + 160] for s in rng.integers(0, len(genome) - 160, 600)])
+    lengths = rng.integers(k, 161, len(rows)).astype(np.int32)
+    packed = rows[:, 0::4] | (rows[:, 1::4] << 2) | (rows[:, 2::4] << 4) | (rows[:, 3::4] << 6)
+    reads = [(rows[i, : lengths[i]], 0, (i % 3) - 1) for i in range(len(rows))]
+    runs = [
+        ([TF.PackedReadBlock(packed, lengths, 160)], dict(merge="device", data_reduce="none")),
+        (reads, dict(merge="device", data_reduce="none")),
+        (reads, dict(merge="device", data_reduce="none", colored=True)),
+        (reads, dict(data_reduce="sum")),
+    ]
+    for items, kw in runs:
+        out = {}
+        for dev in ("cpu", cuda):
+            got = TF.filter_kmers_streaming(items, k, min_obs=2, chunk_reads=128, device=dev, **kw)
+            table, *pairs = got if isinstance(got, tuple) else (got,)
+            assert table.kmers.device.type == torch.device(dev).type
+            out[str(dev)] = [table_to_numpy(table)] + [p.cpu().numpy() for p in pairs]
+        (tc, *pc), (tp, *pp) = out["cuda"], out["cpu"]
+        assert len(tp["kmers"]) > 0
+        assert all(np.array_equal(tc[x], tp[x]) for x in tp), kw
+        assert all(np.array_equal(a, b) for a, b in zip(pc, pp)), kw

@@ -37,7 +37,7 @@ def _same_tables(ref, port, report_all):
         assert port.all_kmers is None
 
 
-@pytest.mark.parametrize("data_reduce", ["label_first", "none"])
+@pytest.mark.parametrize("data_reduce", ["label_first", "none", "max", "sum"])
 @pytest.mark.parametrize("min_obs", [1, 2])
 @pytest.mark.parametrize("stranded", [False, True])
 @pytest.mark.parametrize("k", [16, 31, 47, 63])
@@ -82,4 +82,4 @@ def test_filter_kmers_skips_short_reads():
     port = TF.filter_kmers(reads, 31, device="cpu", report_all=True)
     assert len(port) == 0 and port.all_kmers.shape == (0, 2)
     with pytest.raises(ValueError):
-        TF.filter_kmers([(np.zeros(40, np.uint8), 0, 0)], 31, device="cpu", data_reduce="sum")
+        TF.filter_kmers([(np.zeros(40, np.uint8), 0, 0)], 31, device="cpu", data_reduce="mode")

@@ -83,8 +83,9 @@ def test_combined_graphs_gfa_identical(tmp_path, rng):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port imports without JAX or the JAX package, and
-    chip_smoke.py names neither in any import."""
+    """Every module of the port imports without JAX or the JAX package, no
+    shared object of the JAX package is loaded once the host codec is (the
+    port builds its own), and chip_smoke.py names neither in any import."""
     code = (
         "import importlib, pkgutil, sys, tpu_debruijn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(tpu_debruijn_torch.__path__, 'tpu_debruijn_torch.')]\n"
@@ -92,6 +93,12 @@ def test_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "assert 'tpu_debruijn_torch.kernels.pointer_jump' in names, names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_debruijn') or m.startswith(('jax.', 'tpu_debruijn.')))\n"
+        "assert not bad, bad\n"
+        "from tpu_debruijn_torch.io import native\n"
+        "assert native.native_available()\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        "assert any('libtdb_host_codec' in f for f in maps)\n"
+        "bad = sorted({f for f in maps if '/tpu_debruijn/' in f})\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True)

@@ -1,0 +1,13 @@
+"""Port parity: filter_kmers_streaming's host merge against the JAX package
+at K = 31, 32 and 33 (the cases of test_torch_streaming_host.py)."""
+
+import pytest
+
+from test_torch_streaming_host import DATA_REDUCE, _host_case
+
+
+@pytest.mark.parametrize("data_reduce", DATA_REDUCE)
+@pytest.mark.parametrize("stranded", [False, True])
+@pytest.mark.parametrize("k", [31, 32, 33])
+def test_host_merge_matches_jax(rng, k, stranded, data_reduce):
+    _host_case(rng, k, stranded, data_reduce)

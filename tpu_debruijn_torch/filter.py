@@ -19,6 +19,14 @@ one packed int32 row (:func:`pack_obs_rows`: the limbs' 32-bit words, exts,
 the label, padding to 16 or 32 bytes) and every per-observation move is one
 row gather (``kernels.gather_rows``): the valid-slot compaction and the
 sort permutation.
+
+:func:`filter_kmers_streaming` counts a corpus in chunks: each chunk's
+table is LSM-merged on the host (``merge="host"``), or joined into a
+sorted unique table kept on the device (``merge="device"``,
+:func:`merge_unique`: a searchsorted join, not a sort).  The JAX package's
+static-shape state of that merge (sentinel rows, block compaction,
+capacity growth, lagged confirmation and replays, power-of-two row
+padding) is gone.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize as _canonicalize
 from tpu_debruijn_torch.kernels.extract_canonical import extract_canonical, extract_kmers
@@ -37,14 +46,20 @@ from tpu_debruijn_torch.kmer import M32, KmerSpec
 
 __all__ = [
     "KmerTable",
+    "PackedReadBlock",
     "canonicalize",
+    "count_bytes_per_read",
+    "count_kmer_pairs",
     "count_kmers",
     "extract_kmers",
     "filter_kmers",
+    "filter_kmers_streaming",
+    "merge_unique",
     "obs_row_words",
     "pack_obs_rows",
     "pad_reads",
     "row_limbs",
+    "unpack_2bit",
 ]
 
 COUNT_MAX = 65535  # counts saturate at u16, as in the reference
@@ -126,6 +141,50 @@ def _run_or8(vals: torch.Tensor, ends: torch.Tensor):
     return out
 
 
+def _run_sum(vals: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """int64 sum of ``vals`` over each run of a partition of [0, n) into
+    runs that end (exclusive) at ``ends``: one cumulative sum, read at each
+    run's last element and differenced."""
+    c = gather_rows(torch.cumsum(vals, 0, dtype=torch.int64), ends - 1)
+    return torch.diff(c, prepend=c.new_zeros(1))
+
+
+def _sorted_runs(spec: KmerSpec, bases, lengths, seq_exts, lab, stranded: bool,
+                 by_label: bool = False):
+    """The valid observations of a padded read batch as packed rows
+    (:func:`pack_obs_rows` with ``lab``), stably sorted by kmer, or by
+    (kmer, label as uint32) with ``by_label``; returns (rows, run start
+    flags, run starts, run ends)."""
+    w = spec.w
+    kmers, exts, valid = extract_canonical(spec, bases, lengths, seq_exts, stranded)
+    rows = pack_obs_rows(kmers, exts, lab).reshape(-1, obs_row_words(w))
+    del kmers, exts, lab
+    # the valid slots in slot order, then stably sorted
+    rows = gather_rows(rows, torch.nonzero(valid.reshape(-1)).flatten())
+    del valid
+    key = row_limbs(rows, w)
+    if by_label:
+        key = torch.cat([key, row_limbs(rows[:, w + 1 : w + 2], 1)], dim=1)
+    perm = S.lex_argsort(key)
+    del key
+    srows = gather_rows(rows, perm)
+    del rows, perm
+    # run boundaries on the key's words: equal words, equal limbs
+    is_start = S.run_starts(srows[:, :w])
+    if by_label and is_start.shape[0] > 1:
+        is_start[1:] |= srows[1:, w + 1] != srows[:-1, w + 1]
+    return (srows, is_start) + run_bounds(is_start)
+
+
+def run_bounds(is_start: torch.Tensor):
+    """(starts, ends) of the runs whose first rows ``is_start`` flags."""
+    bounds = torch.nonzero(torch.cat([is_start, is_start.new_ones(1)])).flatten()
+    return bounds[:-1], bounds[1:]
+
+
+DATA_REDUCE = ("label_first", "min", "max", "sum", "obs_min", "none")
+
+
 def count_kmers(
     spec: KmerSpec,
     bases: torch.Tensor,
@@ -142,35 +201,26 @@ def count_kmers(
 
     data_reduce: 'label_first' keeps the label of each kmer's first
     observation in read order (the stable sort keeps it at the run start);
-    'min' keeps the least label of its observations; 'obs_min' keeps its
-    first observation's slot index over all R * (L - K + 1) slots of the
-    padded batch, invalid slots counted (the order
+    'min' / 'max' keep the least / greatest label of its observations;
+    'sum' their sum, wrapping in int32; 'obs_min' keeps its first
+    observation's slot index over all R * (L - K + 1) slots of the padded
+    batch, invalid slots counted (the order
     ``compress_kmer_table_device(first_pos=...)`` contracts chains by);
     'none' leaves ``data`` zero.
     report_all: also return the census of every distinct kmer.
     """
-    if data_reduce not in ("label_first", "min", "obs_min", "none"):
-        raise ValueError(f"data_reduce {data_reduce!r} is not ported")
+    if data_reduce not in DATA_REDUCE:
+        raise ValueError(f"unknown data_reduce {data_reduce!r}")
     w = spec.w
-    kmers, exts, valid = extract_canonical(spec, bases, lengths, seq_exts, stranded)
     lab = None
     if data_reduce == "obs_min":
-        lab = torch.arange(valid.numel(), dtype=torch.int32, device=valid.device).reshape(valid.shape)
+        lk = bases.shape[1] - spec.k + 1
+        lab = torch.arange(bases.shape[0] * lk, dtype=torch.int32,
+                           device=bases.device).reshape(-1, lk)
     elif data_reduce != "none":
         lab = labels.to(torch.int32)[:, None]
-    rows = pack_obs_rows(kmers, exts, lab).reshape(-1, obs_row_words(w))
-    del kmers, exts, lab
-    # the valid slots in slot order, then stably sorted by kmer
-    rows = gather_rows(rows, torch.nonzero(valid.reshape(-1)).flatten())
-    del valid
-    perm = S.lex_argsort(row_limbs(rows, w))
-    srows = gather_rows(rows, perm)
-    del rows, perm
-
-    # run boundaries on the limbs' words: equal words, equal limbs
-    is_start = S.run_starts(srows[:, :w])
-    bounds = torch.nonzero(torch.cat([is_start, is_start.new_ones(1)])).flatten()
-    starts, ends = bounds[:-1], bounds[1:]
+    srows, is_start, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts, lab, stranded)
+    del lab
     counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
     or_exts = _run_or8(srows[:, w], ends)
     # the stable sort keeps each run's observations in slot order, so the
@@ -179,9 +229,11 @@ def count_kmers(
     ukmers = row_limbs(urows, w)
     if data_reduce == "none":
         data = torch.zeros_like(counts)
-    elif data_reduce == "min":
+    elif data_reduce in ("min", "max"):
         run = torch.cumsum(is_start, 0) - 1
-        data = S.segment_min(srows[:, w + 1], run, starts.shape[0])
+        data = S.segment_min(srows[:, w + 1], run, starts.shape[0], "a" + data_reduce)
+    elif data_reduce == "sum":  # wraps in int32, as the JAX package's int32 scan does
+        data = _run_sum(srows[:, w + 1], ends).to(torch.int32)
     else:
         data = urows[:, w + 1]
     kept = (ukmers, or_exts, counts, data)
@@ -197,6 +249,28 @@ def count_kmers(
         data=kept[3].contiguous(),
         all_kmers=ukmers if report_all else None,
     )
+
+
+def count_kmer_pairs(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
+                     seq_exts: torch.Tensor, labels: torch.Tensor, *, stranded: bool):
+    """The colored count of one padded read batch: one row per distinct
+    (kmer, label) pair, sorted by kmer and then by label as a uint32, so
+    negative labels sort last (the JAX package's ``count_kmers_blocks`` with
+    ``labels``; filter.rs:68-101).  Returns (kmers (n, W) int64, labels,
+    exts, counts), each (n,) int32, counts saturating at 65535."""
+    w = spec.w
+    srows, _, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts,
+                                          labels.to(torch.int32)[:, None], stranded, by_label=True)
+    urows = gather_rows(srows, starts)
+    counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
+    return row_limbs(urows, w), urows[:, w + 1].contiguous(), _run_or8(srows[:, w], ends), counts
+
+
+def _empty_table(spec: KmerSpec, stranded: bool, device, report_all: bool = False) -> KmerTable:
+    z = torch.zeros(0, dtype=torch.int32, device=device)
+    zk = torch.zeros((0, spec.w), dtype=torch.int64, device=device)
+    return KmerTable(spec, stranded, zk, z, z.clone(), z.clone(),
+                     all_kmers=zk.clone() if report_all else None)
 
 
 def pad_reads(
@@ -235,10 +309,7 @@ def filter_kmers(
     device = torch.device(device)
     items = [s for s in seqs if len(s[0]) >= k]
     if not items:
-        z = torch.zeros(0, dtype=torch.int32, device=device)
-        zk = torch.zeros((0, spec.w), dtype=torch.int64, device=device)
-        return KmerTable(spec, stranded, zk, z, z.clone(), z.clone(),
-                         all_kmers=zk.clone() if report_all else None)
+        return _empty_table(spec, stranded, device, report_all)
     bases, lengths = pad_reads([s[0] for s in items], min_len=k, pad_to=16)
     seq_exts = np.array([s[1] for s in items], dtype=np.int32)
     labels = np.array([s[2] for s in items], dtype=np.int32)
@@ -253,3 +324,326 @@ def filter_kmers(
         data_reduce=data_reduce,
         report_all=report_all,
     )
+
+
+# ---------------------------------------------------------------------------
+# streaming: the corpus path
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PackedReadBlock:
+    """A pre-batched read block packed 2 bits a base, for streaming
+    ingestion (the JAX package's ``PackedReadBlock``).
+
+    ``packed``: (m, width // 4) uint8 rows, 4 bases a byte, base 4j + i in
+    bits 2i and 2i + 1 of byte j (:func:`unpack_2bit`; the native batch
+    extractor writes this layout).  ``lengths``: (m,) read lengths.
+    ``width``: the row width in bases, a multiple of 16.
+    ``seq_exts``/``label``: scalars or (m,) arrays, as in a 2-D block.
+    """
+
+    packed: np.ndarray
+    lengths: np.ndarray
+    width: int
+    seq_exts: object = 0
+    label: object = 0
+
+
+def unpack_2bit(packed: torch.Tensor) -> torch.Tensor:
+    """(R, C) uint8 rows packed 4 bases a byte -> (R, 4C) uint8 codes: one
+    elementwise pass on the tensor's device (the JAX package's
+    ``_unpack2bit``)."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, :, None] >> shifts) & 3).reshape(packed.shape[0], -1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def count_bytes_per_read(spec: KmerSpec, read_len: int) -> int:
+    """Device bytes that one read of ``read_len`` bases holds at the peak
+    of :func:`count_kmers`, its sort: per slot the compacted packed row, its
+    int64 limbs, the packed sort keys, the sort's output keys, permutation
+    and scratch (one key and one index per pass), and 16 bytes for the
+    per-run columns of a chunk whose kmers are all distinct; plus the read's
+    bases.  An H100 measured up to 75, 82 and 130 bytes a slot at W = 1, 2
+    and 4 against 80, 88 and 144 here (PERF.md §6); ``chip_smoke.py``
+    holds ``count_kmers`` and a streaming run under ``memory_gb=1`` to it."""
+    width = _round_up(max(_round_up(read_len, 32), spec.k), 16)
+    n_keys = (spec.w + 1) // 2
+    per_slot = 4 * obs_row_words(spec.w) + 8 * spec.w + 8 * n_keys + 16 * (n_keys + 1) + 16
+    return (width - spec.k + 1) * per_slot + width
+
+
+def merge_unique(keys, exts, counts, c_keys, c_exts, c_counts):
+    """Fold the sorted unique table (``c_keys``, ``c_exts``, ``c_counts``)
+    into the sorted unique table (``keys``, ``exts``, ``counts``): a join,
+    not a sort.  Keys are (n, W) int64 limbs in [0, 2^32).  A key appears at
+    most once on each side, so a key found on both adds its counts,
+    saturating at 65535, and ORs its exts into the table's row (in place);
+    a new key's row goes to its lower bound in the table plus the count of
+    new rows before it.  Returns the merged (keys, exts, counts)."""
+    idx, found = S.searchsorted_limbs(keys, c_keys)
+    hit = torch.nonzero(found).flatten()
+    if hit.shape[0]:
+        at = gather_rows(idx, hit)
+        counts[at] = (gather_rows(counts, at) + gather_rows(c_counts, hit)).clamp_(max=COUNT_MAX)
+        exts[at] = gather_rows(exts, at) | gather_rows(c_exts, hit)
+    new = torch.nonzero(~found).flatten()
+    n, n_new = keys.shape[0], new.shape[0]
+    if n_new == 0:
+        return keys, exts, counts
+    dev = keys.device
+    lower = gather_rows(idx, new)  # ascending: the chunk is sorted
+    at = lower + torch.arange(n_new, device=dev)
+    # table row i moves down by the new rows whose lower bound is <= i
+    rows = torch.arange(n, device=dev)
+    rest = rows + torch.searchsorted(lower, rows, right=True)
+    out = []
+    for t, c in ((keys, c_keys), (exts, c_exts), (counts, c_counts)):
+        o = t.new_empty((n + n_new,) + t.shape[1:])
+        o[at] = gather_rows(c, new)
+        o[rest] = t
+        out.append(o)
+    return tuple(out)
+
+
+def _merge_sorted_parts(spec: KmerSpec, plist, data_reduce: str):
+    """Merge sorted-unique partial kmer tables into one (host side); the
+    JAX package's helper of the same name.
+
+    Each part is ``(kmers (n, W) uint32 sorted unique, exts, counts,
+    data)``; counts accumulate in int64 (u16 saturation is applied once, at
+    the end of streaming).  ``label_first`` keeps the earliest part's label
+    (np.lexsort is stable and parts are concatenated in arrival order).
+    """
+    kmers = np.concatenate([p[0] for p in plist])
+    exts = np.concatenate([p[1] for p in plist])
+    counts = np.concatenate([p[2] for p in plist]).astype(np.int64)
+    data = np.concatenate([p[3] for p in plist])
+    cols = tuple(kmers[:, i] for i in range(spec.w - 1, -1, -1))
+    order = np.lexsort(cols)
+    kmers, exts, counts, data = kmers[order], exts[order], counts[order], data[order]
+    new = np.ones(len(kmers), bool)
+    if len(kmers) > 1:
+        new[1:] = (kmers[1:] != kmers[:-1]).any(axis=1)
+    starts = np.nonzero(new)[0]
+    ucounts = np.add.reduceat(counts, starts)
+    uexts = np.bitwise_or.reduceat(exts, starts)
+    if data_reduce in ("label_first", "none"):
+        udata = data[starts]
+    elif data_reduce == "min":
+        udata = np.minimum.reduceat(data, starts)
+    elif data_reduce == "max":
+        udata = np.maximum.reduceat(data, starts)
+    elif data_reduce == "sum":
+        udata = np.add.reduceat(data, starts)
+    else:
+        raise ValueError(data_reduce)
+    return kmers[starts], uexts, ucounts, udata
+
+
+def _pair_table(spec: KmerSpec, stranded: bool, min_obs: int, keys, exts, counts):
+    """The colored device state, sorted unique (kmer, label) pairs, rolled
+    up per kmer: counts summed (saturating at 65535), exts OR'd, ``min_obs``
+    on each kmer's total.  Returns (KmerTable, pair_label int32, split
+    int64) as the JAX package does."""
+    w = spec.w
+    kmers = keys[:, :w]
+    is_start = S.run_starts(kmers)
+    starts, ends = run_bounds(is_start)
+    kcounts = _run_sum(counts, ends).clamp(max=COUNT_MAX).to(torch.int32)
+    kexts = _run_or8(exts, ends)
+    keep = kcounts >= min_obs
+    kept = torch.nonzero(keep).flatten()
+    pairs = torch.nonzero(keep[torch.cumsum(is_start, 0) - 1]).flatten()
+    lens = gather_rows(ends - starts, kept)
+    table = KmerTable(spec, stranded, gather_rows(kmers, gather_rows(starts, kept)),
+                      gather_rows(kexts, kept), gather_rows(kcounts, kept),
+                      torch.zeros(kept.shape[0], dtype=torch.int32, device=keys.device))
+    pair_label = gather_rows(keys[:, w].contiguous(), pairs).to(torch.int32)
+    return table, pair_label, torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+
+
+def _per_read(v, lo: int, n: int) -> np.ndarray:
+    """A block's scalar or per-read ``seq_exts``/``label``, rows lo..lo + n."""
+    if np.ndim(v):
+        return np.asarray(v, np.int32)[lo : lo + n]
+    return np.full(n, v, np.int32)
+
+
+def filter_kmers_streaming(
+    seqs,
+    k: int,
+    *,
+    stranded: bool = False,
+    min_obs: int = 1,
+    data_reduce: str = "label_first",
+    chunk_reads: int = 4096,
+    read_len_cap: Optional[int] = None,
+    memory_gb: Optional[float] = None,
+    merge: str = "host",
+    init_capacity: int = 1 << 20,
+    unique_capacity: Optional[int] = None,
+    colored: bool = False,
+    device="cuda",
+):
+    """Memory-bounded streaming counting (filter.rs:151-183), the JAX
+    package's ``filter_kmers_streaming`` on ``device``.
+
+    The reads are counted in chunks of ``chunk_reads`` by
+    :func:`count_kmers` and the chunk tables merged, so device memory is
+    O(chunk), plus the table under ``merge="device"``.  Counts accumulate
+    before ``min_obs`` applies, so the result equals one-batch
+    :func:`filter_kmers`.  ``memory_gb`` with ``read_len_cap`` sizes
+    ``chunk_reads`` so that the count stage's peak
+    (:func:`count_bytes_per_read`) stays under that bound; the device
+    merge's table comes on top of it.
+
+    ``seqs`` is any iterable of per-read (bases, seq_exts, label) tuples
+    (reads shorter than K are skipped); of 2-D pre-batched blocks ``(bases
+    (m, L) uint8, seq_exts, label [, lengths])``, with scalar or (m,)
+    seq_exts and label, which skip the per-read loop; and, under the device
+    merge, of :class:`PackedReadBlock` s, uploaded packed and unpacked on
+    the card.
+
+    ``merge="host"``: each chunk's table is pulled to the host and
+    LSM-merged in numpy (:func:`_merge_sorted_parts`), with every
+    ``data_reduce`` that function takes; counts saturate at 65535 at the
+    end.  ``merge="device"``: the table stays on ``device``, sorted unique
+    kmers with exts and counts, and each chunk's table is joined into it
+    (:func:`merge_unique`); counts saturate at every merge, which gives the
+    same result.  It takes ``data_reduce='none'`` only.  ``init_capacity``
+    and ``unique_capacity`` size the JAX package's static-shape device
+    state: they are accepted and have no effect here.
+
+    ``colored=True`` (device merge only) counts (kmer, label) pairs, the
+    label a color id, and returns ``(KmerTable, pair_label, split)`` as the
+    JAX package does: row i's sorted distinct colors (ordered as uint32)
+    are ``pair_label[split[i]:split[i + 1]]``, and ``min_obs`` applies to
+    each kmer's total count.
+
+    Each chunk reads its table's size to the host (``torch.nonzero``) a few
+    times; nothing else waits for the card.
+    """
+    spec = KmerSpec(k)
+    device = torch.device(device)
+    if memory_gb is not None and read_len_cap is not None:
+        chunk_reads = max(256, int(memory_gb * 1e9 / count_bytes_per_read(spec, read_len_cap)))
+    if colored and merge != "device":
+        raise ValueError("colored=True requires merge='device'")
+    if merge == "device" and data_reduce != "none":
+        raise ValueError(
+            "merge='device' supports data_reduce='none' only (colored=True carries labels "
+            "as pair keys; other label reductions need merge='host')"
+        )
+    # the JAX package's row width: the widest read so far rounded up to 32,
+    # then over K to 16 (the slot indices of 'obs_min' count it)
+    cap = None if read_len_cap is None else _round_up(read_len_cap, 32)
+    parts = []
+    table = (torch.zeros((0, spec.w + colored), dtype=torch.int64, device=device),
+             torch.zeros(0, dtype=torch.int32, device=device),
+             torch.zeros(0, dtype=torch.int32, device=device))
+
+    def width_for(need: int) -> int:
+        nonlocal cap
+        cap = need if cap is None else max(cap, need)
+        return _round_up(max(cap, k), 16)
+
+    def count(bases: torch.Tensor, lengths, seq_exts, labels) -> None:
+        nonlocal table
+        lengths, seq_exts, labels = (torch.from_numpy(a).to(device) for a in (lengths, seq_exts, labels))
+        if merge == "device":
+            if colored:
+                km, lab, ex, cn = count_kmer_pairs(spec, bases, lengths, seq_exts, labels,
+                                                   stranded=stranded)
+                keys = torch.cat([km, (lab.to(torch.int64) & M32)[:, None]], dim=1)
+            else:
+                t = count_kmers(spec, bases, lengths, seq_exts, labels, stranded=stranded,
+                                min_obs=1, data_reduce="none", report_all=False)
+                keys, ex, cn = t.kmers, t.exts, t.counts
+            table = merge_unique(*table, keys, ex, cn)
+            return
+        t = count_kmers(spec, bases, lengths, seq_exts, labels, stranded=stranded, min_obs=1,
+                        data_reduce=data_reduce, report_all=False)
+        parts.append((KM.to_numpy(t.kmers), t.exts.cpu().numpy(),
+                      t.counts.cpu().numpy().astype(np.int64), t.data.cpu().numpy()))
+        # LSM-style merging keeps host memory O(unique kmers) with a log
+        # factor (filter.rs:151-183)
+        while len(parts) >= 2 and 2 * len(parts[-1][0]) >= len(parts[-2][0]):
+            b = parts.pop()
+            a = parts.pop()
+            parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
+
+    def flush(chunk) -> None:
+        if not chunk:
+            return
+        width = width_for(_round_up(max(len(s[0]) for s in chunk), 32))
+        arr = np.zeros((len(chunk), width), np.uint8)
+        for i, (s, _, _) in enumerate(chunk):
+            arr[i, : len(s)] = s
+        count(torch.from_numpy(arr).to(device), np.array([len(s[0]) for s in chunk], np.int32),
+              np.array([s[1] for s in chunk], np.int32), np.array([s[2] for s in chunk], np.int32))
+
+    def flush_block(item) -> None:
+        block = np.ascontiguousarray(item[0], dtype=np.uint8)
+        m, blen = block.shape
+        blens = item[3] if len(item) > 3 else None
+        width = width_for(_round_up(blen, 32))
+        for lo in range(0, m, chunk_reads):
+            sub = block[lo : lo + chunk_reads]
+            n = sub.shape[0]
+            arr = np.zeros((n, width), np.uint8)
+            arr[:, :blen] = sub
+            lengths = (np.full(n, blen, np.int32) if blens is None
+                       else np.minimum(np.asarray(blens[lo : lo + n], np.int32), width))
+            count(torch.from_numpy(arr).to(device), lengths,
+                  _per_read(item[1], lo, n), _per_read(item[2], lo, n))
+
+    def flush_packed(item: PackedReadBlock) -> None:
+        if merge != "device":
+            raise ValueError("PackedReadBlock items require merge='device'")
+        if item.width % 16:
+            raise ValueError("PackedReadBlock width must be a multiple of 16")
+        for lo in range(0, item.packed.shape[0], chunk_reads):
+            sub = np.ascontiguousarray(item.packed[lo : lo + chunk_reads], np.uint8)
+            n = sub.shape[0]
+            count(unpack_2bit(torch.from_numpy(sub).to(device)),
+                  np.asarray(item.lengths[lo : lo + n], np.int32),
+                  _per_read(item.seq_exts, lo, n), _per_read(item.label, lo, n))
+
+    chunk: list = []
+    for item in seqs:
+        if isinstance(item, PackedReadBlock) or np.ndim(item[0]) == 2:
+            flush(chunk)
+            chunk = []
+            (flush_packed if isinstance(item, PackedReadBlock) else flush_block)(item)
+            continue
+        if len(item[0]) < k:
+            continue
+        chunk.append(item)
+        if len(chunk) == chunk_reads:
+            flush(chunk)
+            chunk = []
+    flush(chunk)
+
+    if merge == "device":
+        if colored:
+            return _pair_table(spec, stranded, min_obs, *table)
+        keep = torch.nonzero(table[2] >= min_obs).flatten()
+        kmers, exts, counts = (gather_rows(t, keep) for t in table)
+        return KmerTable(spec, stranded, kmers, exts, counts, torch.zeros_like(counts))
+    if not parts:
+        return _empty_table(spec, stranded, device)
+    while len(parts) > 1:
+        b = parts.pop()
+        a = parts.pop()
+        parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
+    kmers, uexts, counts, udata = parts[0]
+    ucounts = np.minimum(counts, COUNT_MAX).astype(np.int32)
+    keep = ucounts >= min_obs
+    col = lambda a: torch.from_numpy(a[keep].astype(np.int32)).to(device)
+    return KmerTable(spec, stranded, KM.to_torch(kmers[keep], device), col(uexts), col(ucounts),
+                     col(udata))

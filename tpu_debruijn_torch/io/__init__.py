@@ -1,4 +1,4 @@
-"""Host IO: native ASCII<->2-bit codec and FASTA/FASTQ reading."""
+"""Host IO: the ASCII<->2-bit codec and FASTA/FASTQ reading, whole or in packed blocks."""
 
 from tpu_debruijn_torch.io.native import (
     ascii_to_codes,
@@ -8,7 +8,7 @@ from tpu_debruijn_torch.io.native import (
     rc_codes,
     unpack_codes,
 )
-from tpu_debruijn_torch.io.fastx import read_fasta, read_fastq, read_fastx
+from tpu_debruijn_torch.io.fastx import read_fasta, read_fastq, read_fastx, stream_fastx_blocks
 
 __all__ = [
     "ascii_to_codes",
@@ -20,4 +20,5 @@ __all__ = [
     "read_fasta",
     "read_fastq",
     "read_fastx",
+    "stream_fastx_blocks",
 ]

@@ -1,9 +1,9 @@
 """FASTA/FASTQ readers feeding the device pipeline.
 
-A copy of ``tpu_debruijn/io/fastx.py`` without the streaming block reader.
-Parsing/encoding runs in the native C++ codec when its library loads
-(``io/native.py``), with a pure-Python fallback.  Supports plain and gzip
-files.
+A copy of ``tpu_debruijn/io/fastx.py``.  Parsing/encoding runs in the
+port's host codec when it builds (``io/native.py``), with a pure-Python
+fallback; the streaming block reader needs the codec.  Supports plain and
+gzip files.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from tpu_debruijn_torch.filter import PackedReadBlock
 from tpu_debruijn_torch.io import native as N
 
 
@@ -78,3 +79,41 @@ def read_fasta(path: str, max_records: Optional[int] = None) -> List[np.ndarray]
 
 def read_fastq(path: str, max_records: Optional[int] = None) -> List[np.ndarray]:
     return read_fastx(path, max_records)
+
+
+def stream_fastx_blocks(path: str, block_reads: int = 8192, width: Optional[int] = None):
+    """Stream a FASTA/FASTQ(.gz) file as packed read blocks.
+
+    Yields :class:`tpu_debruijn_torch.filter.PackedReadBlock` items: the
+    codec's batch extractor (``db_fastx_extract_batch``) decodes
+    ``block_reads`` records per call straight into rows packed 2 bits a
+    base, so the feeder does no per-read Python work.  Feed the generator to
+    ``filter_kmers_streaming(..., merge="device")``, which uploads the rows
+    packed.
+
+    ``width``: row width in bases (rounded up to a multiple of 16); default
+    the longest record span in the file.  Longer records are truncated to
+    it.
+    """
+    if not N.native_available():
+        raise RuntimeError(
+            "stream_fastx_blocks needs the host codec (csrc/host_codec.cpp), "
+            "which needs a host C++ compiler to build"
+        )
+    data = _read_bytes(path)
+    buf = np.frombuffer(data, np.uint8)
+    if len(buf) == 0:
+        return
+    cap = max(16, len(buf) // 32)
+    rs, re_, n = N.fastx_scan(buf, cap)
+    if n > cap:
+        rs, re_, n = N.fastx_scan(buf, n)
+    rs, re_ = rs[:n], re_[:n]
+    if width is None:
+        # span length bounds the sequence length (it includes newlines)
+        width = int((re_ - rs).max(initial=16))
+    width = -(-width // 16) * 16
+    for lo in range(0, n, block_reads):
+        hi = min(lo + block_reads, n)
+        rows, lengths, _bad = N.fastx_extract_batch(buf, rs[lo:hi], re_[lo:hi], width // 4)
+        yield PackedReadBlock(rows, lengths, width)

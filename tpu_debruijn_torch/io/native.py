@@ -1,15 +1,22 @@
-"""ctypes bindings for the native host codec (native/debruijn_native.cpp).
+"""ctypes bindings for the port's host codec (``csrc/host_codec.cpp``).
 
-A copy of ``tpu_debruijn/io/native.py`` (the port never imports the JAX
-package).  The shared library is the one tracked beside the JAX package,
-``tpu_debruijn/io/libdebruijn_native.so``, loaded by file path.  Without it
-the NumPy codec below does the same work; both are host code.
+A copy of ``tpu_debruijn/io/native.py`` that loads nothing of the JAX
+package.  The codec's source is the port's own copy of
+``native/debruijn_native.cpp``; :func:`_build_library` compiles it with the
+host C++ compiler at first use into ``_build/`` beside the package (a
+directory git ignores), under a name that carries a hash of the source and
+flags, so an edited source never loads a stale build and several processes
+may build at once.  A compiler error raises.  Without a host compiler the
+NumPy codec below does the same work; both are host code.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
@@ -17,39 +24,62 @@ import numpy as np
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
-_SO_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    os.pardir, os.pardir, "tpu_debruijn", "io", "libdebruijn_native.so",
-)
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "host_codec.cpp")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+
+
+def _build_library() -> Optional[str]:
+    """The codec library's path, built (once per source and flags hash) if
+    it is not there; None when no host C++ compiler is found."""
+    with open(SOURCE, "rb") as f:
+        h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + f.read())
+    out = os.path.join(BUILD_DIR, f"libtdb_host_codec_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building the host codec failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
+    path = _build_library()
     _TRIED = True
-    try:
-        lib = ctypes.CDLL(os.path.normpath(_SO_PATH))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.db_ascii_to_codes.restype = ctypes.c_int64
-        lib.db_ascii_to_codes.argtypes = [u8p, ctypes.c_int64, u8p, u8p]
-        lib.db_codes_to_ascii.restype = None
-        lib.db_codes_to_ascii.argtypes = [u8p, ctypes.c_int64, u8p]
-        lib.db_pack_codes_u32.restype = None
-        lib.db_pack_codes_u32.argtypes = [u8p, ctypes.c_int64, u32p]
-        lib.db_unpack_codes_u32.restype = None
-        lib.db_unpack_codes_u32.argtypes = [u32p, ctypes.c_int64, u8p]
-        lib.db_rc_codes.restype = None
-        lib.db_rc_codes.argtypes = [u8p, ctypes.c_int64, u8p]
-        lib.db_fastx_scan.restype = ctypes.c_int64
-        lib.db_fastx_scan.argtypes = [u8p, ctypes.c_int64, i64p, i64p, ctypes.c_int64]
-        lib.db_fastx_extract.restype = ctypes.c_int64
-        lib.db_fastx_extract.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, u8p, i64p]
-        _LIB = lib
-    except OSError:
-        _LIB = None
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.db_ascii_to_codes.restype = ctypes.c_int64
+    lib.db_ascii_to_codes.argtypes = [u8p, ctypes.c_int64, u8p, u8p]
+    lib.db_codes_to_ascii.restype = None
+    lib.db_codes_to_ascii.argtypes = [u8p, ctypes.c_int64, u8p]
+    lib.db_pack_codes_u32.restype = None
+    lib.db_pack_codes_u32.argtypes = [u8p, ctypes.c_int64, u32p]
+    lib.db_unpack_codes_u32.restype = None
+    lib.db_unpack_codes_u32.argtypes = [u32p, ctypes.c_int64, u8p]
+    lib.db_rc_codes.restype = None
+    lib.db_rc_codes.argtypes = [u8p, ctypes.c_int64, u8p]
+    lib.db_fastx_scan.restype = ctypes.c_int64
+    lib.db_fastx_scan.argtypes = [u8p, ctypes.c_int64, i64p, i64p, ctypes.c_int64]
+    lib.db_fastx_extract.restype = ctypes.c_int64
+    lib.db_fastx_extract.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, u8p, i64p]
+    lib.db_fastx_extract_batch.restype = ctypes.c_int64
+    lib.db_fastx_extract_batch.argtypes = [u8p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64, i32p]
+    _LIB = lib
     return _LIB
 
 
@@ -162,3 +192,22 @@ def fastx_extract(buf: np.ndarray, start: int, end: int):
     bad = np.zeros(1, np.int64)
     m = lib.db_fastx_extract(_u8p(buf), start, end, _u8p(codes), _i64p(bad))
     return codes[:m], int(bad[0])
+
+
+def fastx_extract_batch(buf: np.ndarray, rec_start: np.ndarray, rec_end: np.ndarray,
+                        row_stride: int):
+    """Decode a batch of record spans into one (m, row_stride) row matrix
+    packed 2 bits a base (4 bases a byte, little-endian in the byte: the
+    streaming upload format, ``filter.unpack_2bit``) and per-record
+    lengths, in one native call.  Returns (rows, lengths, n_invalid)."""
+    lib = _load()
+    rs = np.ascontiguousarray(rec_start, np.int64)
+    re_ = np.ascontiguousarray(rec_end, np.int64)
+    m = len(rs)
+    rows = np.empty((m, row_stride), np.uint8)
+    lengths = np.empty(m, np.int32)
+    bad = lib.db_fastx_extract_batch(
+        _u8p(buf), _i64p(rs), _i64p(re_), m, _u8p(rows), row_stride,
+        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return rows, lengths, int(bad)

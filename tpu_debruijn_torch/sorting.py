@@ -4,7 +4,8 @@ The JAX package sorts with ``jax.lax.sort`` over several key arrays.  Here
 a kmer's limbs are packed into int64 sort keys: two 32-bit limbs make one
 key, biased by 2**63 so that signed int64 order is the unsigned order.
 W <= 2 sorts in one ``torch.sort`` pass; W = 3-4 takes two stable passes,
-least-significant key first (LSD).  Searches use ``torch.searchsorted`` on
+least-significant key first (LSD), and a (kmer, label) pair of W + 1 = 5
+limbs three.  Searches use ``torch.searchsorted`` on
 the packed key for W <= 2 and a vectorized binary search over the limbs
 for W > 2.  The row gathers of the LSD passes, the searches and the join go
 through :func:`~tpu_debruijn_torch.kernels.gather.gather_rows` (the kernel
@@ -29,15 +30,12 @@ def _pack_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 def pack_keys(limbs: torch.Tensor) -> list:
     """(n, W) limbs -> int64 keys, most significant first, whose
-    lexicographic order is the limbs' lexicographic order."""
+    lexicographic order is the limbs' lexicographic order: pairs of limbs
+    from the last one up, an odd first limb alone.  W may exceed 4: a
+    (kmer, label) pair key has W + 1 limbs."""
     w = limbs.shape[1]
-    if w == 1:
-        return [limbs[:, 0]]
-    if w == 2:
-        return [_pack_pair(limbs[:, 0], limbs[:, 1])]
-    if w == 3:
-        return [limbs[:, 0], _pack_pair(limbs[:, 1], limbs[:, 2])]
-    return [_pack_pair(limbs[:, 0], limbs[:, 1]), _pack_pair(limbs[:, 2], limbs[:, 3])]
+    keys = [limbs[:, 0]] if w % 2 else []
+    return keys + [_pack_pair(limbs[:, i], limbs[:, i + 1]) for i in range(w % 2, w, 2)]
 
 
 def lex_argsort(limbs: torch.Tensor) -> torch.Tensor:
@@ -89,13 +87,14 @@ def copy_last(vals: torch.Tensor, is_end: torch.Tensor) -> torch.Tensor:
     return copy_first(vals.flip(0), is_end.flip(0)).flip(0)
 
 
-def segment_min(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
-    """Minimum of ``vals`` over each segment id in ``[0, n_seg)``; every
-    segment must hold an element.  Where the JAX package reads a suffix
-    segmented min at segment starts (``compress._min_suffix_packed``), this
-    gives the same values with one scatter."""
+def segment_min(vals: torch.Tensor, seg: torch.Tensor, n_seg: int, reduce: str = "amin") -> torch.Tensor:
+    """Minimum (``reduce="amax"``: maximum) of ``vals`` over each segment
+    id in ``[0, n_seg)``; every segment must hold an element.  Where the JAX
+    package reads a suffix segmented min or max at segment starts
+    (``compress._min_suffix_packed``, ``sorting.seg_op_scan``), this gives
+    the same values with one scatter."""
     out = torch.zeros(n_seg, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce(0, seg, vals, "amin", include_self=False)
+    return out.scatter_reduce(0, seg, vals, reduce, include_self=False)
 
 
 def partition(mask: torch.Tensor, arrays):
@@ -129,7 +128,9 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
     hi = torch.full((m,), n, dtype=torch.int64, device=dev)
     for _ in range(max(1, math.ceil(math.log2(n + 1)))):
         mid = (lo + hi) // 2
-        is_lt = lex_lt(gather_rows(sorted_limbs, mid), query_limbs)
+        # a converged query (lo == hi) stays put: at lo = n the clamped
+        # gather would read the last row and step past the end
+        is_lt = lex_lt(gather_rows(sorted_limbs, mid), query_limbs) & (lo < hi)
         lo = torch.where(is_lt, mid + 1, lo)
         hi = torch.where(is_lt, hi, mid)
     found = (lo < n) & lex_eq(gather_rows(sorted_limbs, lo), query_limbs)
