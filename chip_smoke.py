@@ -41,7 +41,11 @@ Phases; any failure raises and the script exits non-zero:
    after the counts are read), rank_lists never took its round path, the
    table lies on the card, every table kmer is in exactly one unitig, every
    unitig is a substring of the genome or of its reverse complement, and
-   the GFA has one S line per node.
+   the GFA has one S line per node.  Then compress_kmers' default policy on
+   that table in its two forms, in turns: chain labels assembled on the
+   host, and sequences assembled on the card (compress_kmers_flat_device):
+   equal unitigs; host seconds, device busy and device-to-host copy ms
+   under torch.profiler, and the bytes each copies to the host.
 4. The read-ordered path on phase 3's reads, held in memory:
    filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
@@ -54,7 +58,11 @@ Phases; any failure raises and the script exits non-zero:
 6. The CUDA path against the CPU path on a small input: identical tables,
    unitig lists and GFA bytes; and the colored streaming count
    (filter_kmers_streaming(colored=True), four colors, one negative):
-   identical tables, pair labels and splits.
+   identical tables, pair labels and splits; and every entry point of the
+   colored / policy path on labeled reads (set, eq-class and summarizer
+   filters, color-set, rich, ScmapCompress and no-exts compression,
+   inferred and censored exts, the GFA bytes of from_flat_output):
+   identical outputs (policy_outputs, which the card tests also run).
 7. The corpus path on phase 3's FASTQ file: stream_fastx_blocks ->
    filter_kmers_streaming(merge="device") in bench.py's 64 batches, the
    table equal to phase 3's bit for bit; the same reads as per-read tuples
@@ -69,7 +77,26 @@ Phases; any failure raises and the script exits non-zero:
    of the streamed count under torch.profiler, the join merge against a
    concatenate-and-sort merge at the last merge's shape, and a pinned
    against a pageable upload of one packed chunk.  count_kmers' peak bytes
-   a read on random reads must stay under filter.count_bytes_per_read.
+   a read on random reads, and count_kmer_pairs' with four labels, must stay
+   under filter.count_bytes_per_read.
+8. The colored path at full width: four strains of phase 3's genome, each
+   with its own substitutions (one per 1,000 bp, positions and bases from
+   --seed), 150 bp reads at 15x a strain, half reverse-complemented,
+   labelled by strain; k = 31, min_obs = 2.  filter_kmers_set_arrays in
+   one batch equals filter_kmers_streaming(colored=True) in 64 chunks;
+   filter_kmers_eq_classes gives equal ids exactly where the sets are
+   equal, and assign_eq_classes on the same pairs gives the same ids and
+   classes in its dense and its hashed form (each timed);
+   compress_kmers_color_sets with and without the set join puts
+   every table kmer in one unitig, every unitig in a strain or its reverse
+   complement, every color set sorted and distinct, and with the join
+   equals compress_kmers(ScmapCompress) of the eq-class table; device and
+   host assembly agree (timed as in phase 3); compress_kmers_no_exts
+   meets the same invariants; remove_censored_exts leaves no extension
+   onto a missing kmer.  Launches are counted from the count through both
+   color-set compressions ("colored").  On 20,000 of phase 5's reads with
+   four labels, compress_kmers_rich and the three summarizers are held
+   against the array forms.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -101,6 +128,10 @@ READ_LEN = 150
 COVERAGE = 30
 K = 31
 KS = [4, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64]
+N_STRAINS = 4  # phase 8: strains of phase 3's genome
+SNP_EVERY = 1000  # one private substitution a strain per this many bases
+STRAIN_COVERAGE = 15
+SMALL_READS = 20_000  # phase 8's per-kmer and per-edge Python forms
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 _LUT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -771,7 +802,61 @@ def profile_device_ms(fn, top: int = 6) -> dict:
     ops = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda o: -o[1])
-    return {"busy": sum(o[1] for o in ops), "top": ops[:top]}
+    return {"busy": sum(o[1] for o in ops), "dtoh": sum(o[1] for o in ops if "DtoH" in o[0]),
+            "top": ops[:top]}
+
+
+def assembly_forms(table) -> dict:
+    """compress_kmers' default policy on ``table`` in its two forms: the
+    chain labels pulled to the host and assembled there
+    (compress.assemble_chains), and the sequences assembled on the card
+    (compress.compress_kmers_flat_device)."""
+    from tpu_debruijn_torch import compress as C
+
+    def host():
+        chains, u_exts, contrib = C.compress_kmer_table_device(
+            table.spec, table.stranded, table.kmers, table.exts)
+        return C.assemble_chains(table.spec, table.kmers, chains, u_exts, contrib, table.counts)
+
+    def device():
+        seq, lengths, u_exts, data = C.compress_kmers_flat_device(table, device=table.kmers.device)
+        return C._nodes(seq, lengths, u_exts, data.tolist())
+
+    return {"host": host, "device": device}
+
+
+def compare_assembly(table, what: str) -> dict:
+    """Host against device assembly of one table: equal unitigs; host
+    seconds of each form (in turns: host, device, device, host), the card's
+    busy ms and its device-to-host copy ms under torch.profiler, and the
+    bytes each form copies to the host."""
+    from tpu_debruijn_torch import compress as C
+
+    forms = assembly_forms(table)
+    check(same_unitigs(forms["host"](), forms["device"]()),
+          f"{what}: device assembly != host assembly")
+    secs = {"host": [], "device": []}
+    for name in ("host", "device", "device", "host"):
+        t0 = time.perf_counter()
+        forms[name]()
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    prof = {name: profile_device_ms(fn) for name, fn in forms.items()}
+    chains, u_exts, contrib = C.compress_kmer_table_device(
+        table.spec, table.stranded, table.kmers, table.exts)
+    seq, lengths, data = C.assemble_unitigs_device(table.spec, table.kmers, chains, contrib,
+                                                   table.counts)
+    copied = {
+        "host": nbytes(table.kmers, chains.uid, chains.pos, chains.length, chains.first_item,
+                       chains.first_flip, u_exts, contrib, table.counts),
+        "device": nbytes(seq, lengths, u_exts, data),
+    }
+    out = {"unitigs": chains.n_unitigs, "seconds": secs,
+           "device_busy_ms": {n: p["busy"] for n, p in prof.items()},
+           "dtoh_ms": {n: p["dtoh"] for n, p in prof.items()}, "dtoh_bytes": copied,
+           "top_device": prof["device"]["top"]}
+    log(f"{what}: host vs device assembly, equal unitigs: " + json.dumps(out))
+    return out
 
 
 def same_unitigs(a, b) -> bool:
@@ -885,6 +970,82 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     check(np.array_equal(lc, lp) and np.array_equal(sc, sp), "colored: CUDA and CPU pairs differ")
     check(len(tc["kmers"]) > 0 and (lc == -1).any(), "colored: no kmer or no negative color")
     log(f"phase 6: colored streaming CUDA == CPU on {len(tc['kmers'])} kmers, {len(lc)} pairs")
+
+    got = {dev: policy_outputs(reads, K, dev, os.path.join(tmp, f"colored_{dev}.gfa"))
+           for dev in ("cuda", "cpu")}
+    for name, want in got["cpu"].items():
+        check(same_outputs(got["cuda"][name], want), f"colored / policy path: CUDA and CPU {name} differ")
+    log(f"phase 6: the colored / policy path CUDA == CPU: {sorted(got['cpu'])}; "
+        f"{len(got['cpu']['set_arrays'][0])} kmers, {len(got['cpu']['color_sets join=False'][0])} "
+        f"unitigs, {len(got['cpu']['gfa'])} GFA bytes")
+
+
+def flat_of(nodes):
+    """A unitig list as from_flat_output's flat buffers."""
+    return (np.concatenate([s for s, _, _ in nodes]).astype(np.uint8),
+            np.array([len(s) for s, _, _ in nodes], np.int64),
+            np.array([e for _, e, _ in nodes], np.int32), np.array([d for _, _, d in nodes], np.int32))
+
+
+def union(a, b):
+    return tuple(sorted(set(a) | set(b)))
+
+
+def policy_outputs(reads, k: int, dev, gfa_path: str) -> dict:
+    """Every entry point of the colored / policy path on ``dev`` for the
+    labeled ``reads`` at ``k``, min_obs = 2: outputs as numpy arrays and
+    Python objects, by entry point.  Phase 6 and the card tests
+    (tests/test_torch_cuda.py) hold the CUDA outputs to the CPU ones."""
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import graph as G
+    from tpu_debruijn_torch import table_to_numpy
+
+    tab = lambda t: list(table_to_numpy(t).values())
+    listed = lambda ns: [(s.tolist(), e, d) for s, e, d in ns]
+    kw = dict(min_obs=2, device=dev)
+    out = {}
+    t, pl, sp = F.filter_kmers_set_arrays(reads, k, **kw)
+    out["set_arrays"] = tab(t) + [pl.cpu().numpy(), sp.cpu().numpy()]
+    sets = out["set"] = F.filter_kmers_set(reads, k, **kw)[1]
+    te, classes = F.filter_kmers_eq_classes(reads, k, **kw)
+    out["eq_classes"] = tab(te) + [classes]
+    pk = torch.repeat_interleave(torch.arange(len(t), device=sp.device), torch.diff(sp))
+    out["eq_classes_hashed"] = list(F.assign_eq_classes(pk, pl, len(t), dense_limit=0, device=dev))
+    for join in (False, True):
+        nodes, labels, split = C.compress_kmers_color_sets(t, pl, sp, join_on_sets=join, device=dev)
+        out[f"color_sets join={join}"] = [listed(nodes), labels, split]
+    G.from_flat_output(k, False, *flat_of(nodes)).finish(device=dev).to_gfa(gfa_path)
+    with open(gfa_path, "rb") as f:
+        out["gfa"] = f.read()
+    out["rich"] = listed(C.compress_kmers_rich(
+        t, sets, reduce=union, join_test=lambda a, b: abs(len(a) - len(b)) <= 1, device=dev))
+    out["scmap"] = listed(C.compress_kmers(te, spec=C.ScmapCompress(), data_field="data", device=dev))
+    for summarizer in (F.CountFilterSet(2), F.CountFilterEqClass(2)):
+        ts, data = F.filter_kmers_with_summarizer(reads, k, summarizer, report_all=True, device=dev)
+        out[type(summarizer).__name__] = tab(ts) + [data]
+    table = F.filter_kmers(reads, k, report_all=True, **kw)
+    out["policies"] = [listed(C.compress_kmers(table, spec=spec, data_field="data", device=dev))
+                       for spec in (C.SimpleCompress("max"), C.SimpleCompress(min))]
+    out["flat_device"] = list(C.compress_kmers_flat_device(table, device=dev))
+    out["infer_exts"] = C.infer_exts_device(table.spec, False, table.kmers).cpu().numpy()
+    out["no_exts"] = listed(C.compress_kmers_no_exts(k, table.kmers.flip(0), table.data.flip(0),
+                                                     data_reduce="min", device=dev))
+    for name, fn in (("censored", F.remove_censored_exts),
+                     ("censored_sharded", F.remove_censored_exts_sharded)):
+        tc = F.KmerTable(table.spec, False, table.kmers, table.exts.clone(), table.counts,
+                         table.data, all_kmers=table.all_kmers)
+        fn(tc, device=dev)
+        out[name] = tc.exts.cpu().numpy()
+    return out
+
+
+def same_outputs(a, b) -> bool:
+    if isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(same_outputs(x, y) for x, y in zip(a, b))
+    return a == b
 
 
 def timed_blocks(blocks, decode_s: list, chunk_s: list):
@@ -1004,26 +1165,33 @@ def phase_corpus(fq: str, reads, table_main: dict, nodes_main, rich_reads, count
         f"in {out['compress_s']:.3f} s; launches {json.dumps(launches)}")
 
     # count_bytes_per_read against count_kmers' own peak on a chunk of
-    # random reads (every kmer distinct), the widths and modes (b) can take
+    # random reads (every kmer distinct), the widths and modes (b) can take,
+    # and count_kmer_pairs' (four labels) for the colored count
     gen = np.random.default_rng(0)
     out["count_peak_per_read"] = []
-    for k_, dr in ((K, "label_first"), (K, "sum"), (63, "none"), (63, "sum"), (16, "sum")):
+    for k_, dr in ((K, "label_first"), (K, "sum"), (63, "none"), (63, "sum"), (16, "sum"),
+                   (K, "colored"), (63, "colored"), (16, "colored")):
         spec = TF.KmerSpec(k_)
         host = gen.integers(0, 4, (20_000, 160)).astype(np.uint8)
+        labels = torch.from_numpy(gen.integers(0, 4, host.shape[0]).astype(np.int32)).to(device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         z = torch.zeros(host.shape[0], dtype=torch.int32, device=device)
-        TF.count_kmers(spec, torch.from_numpy(host).to(device),
-                       torch.full_like(z, READ_LEN), z, z, stranded=False, min_obs=1,
-                       data_reduce=dr, report_all=False)
+        bases = torch.from_numpy(host).to(device)
+        if dr == "colored":
+            TF.count_kmer_pairs(spec, bases, torch.full_like(z, READ_LEN), z, labels, stranded=False)
+        else:
+            TF.count_kmers(spec, bases, torch.full_like(z, READ_LEN), z, z, stranded=False,
+                           min_obs=1, data_reduce=dr, report_all=False)
+        del bases
         per_read = (torch.cuda.max_memory_allocated() - base) / host.shape[0]
-        reckoned = TF.count_bytes_per_read(spec, READ_LEN)
-        check(per_read <= reckoned, f"count_kmers took {per_read} bytes a read at K={k_} {dr}, "
+        reckoned = TF.count_bytes_per_read(spec, READ_LEN, colored=dr == "colored")
+        check(per_read <= reckoned, f"the count took {per_read} bytes a read at K={k_} {dr}, "
               f"count_bytes_per_read reckons {reckoned}")
         out["count_peak_per_read"].append({"k": k_, "data_reduce": dr, "bytes": per_read,
                                            "reckoned": reckoned})
-    log("phase 7: count_kmers' peak device bytes a read (150 bases) against "
+    log("phase 7: the count's peak device bytes a read (150 bases) against "
         "count_bytes_per_read: " + json.dumps(out["count_peak_per_read"]))
 
     # where the host merge's time goes: the same run under cProfile
@@ -1107,6 +1275,257 @@ def phase_corpus(fq: str, reads, table_main: dict, nodes_main, rich_reads, count
     out["k63"] = {"reads": len(rich_reads), "table_kmers": len(one), "wall_s": wall_d}
     log(f"phase 7 (d): K = 63 device merge of {len(rich_reads)} repeat-rich reads in 64 chunks "
         f"equals one-batch filter_kmers ({len(one)} kmers) in {wall_d:.3f} s")
+    return out
+
+
+def make_strains(rng, genome: np.ndarray, n_strains: int, per_bp: int) -> list:
+    """Strains of ``genome``, each with its own substitutions, one per
+    ``per_bp`` bases: positions and new bases drawn from ``rng``."""
+    strains = []
+    for _ in range(n_strains):
+        s = genome.copy()
+        pos = rng.choice(len(genome), len(genome) // per_bp, replace=False)
+        s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+        strains.append(s)
+    return strains
+
+
+def kmer_codes(g: torch.Tensor, k: int) -> torch.Tensor:
+    """The 2k-bit code of every k-window of the base tensor ``g`` (k <= 31)."""
+    m = g.shape[0] - k + 1
+    code = torch.zeros(max(m, 0), dtype=torch.int64, device=g.device)
+    for t in range(k):
+        code = (code << 2) | g[t : t + m]
+    return code
+
+
+def unitigs_in_strains(nodes, strains, device) -> bool:
+    """Whether every unitig, or its reverse complement, is a substring of
+    one of ``strains``, on the card: its first kmer is looked up among each
+    strain's sorted kmers (a random genome repeats no 31-mer, and a
+    substitution moves no coordinate) and the whole unitig compared there."""
+    seq = torch.from_numpy(np.concatenate([s for s, _, _ in nodes])).to(device).to(torch.int64)
+    lens = torch.tensor([len(s) for s, _, _ in nodes], device=device)
+    offs = torch.cumsum(lens, 0) - lens
+    uid = torch.repeat_interleave(torch.arange(len(nodes), device=device), lens)
+    j = torch.arange(seq.shape[0], device=device) - offs[uid]
+    rc = 3 - seq[offs[uid] + lens[uid] - 1 - j]  # each unitig reverse-complemented in place
+    ok = torch.zeros(len(nodes), dtype=torch.bool, device=device)
+    for strain in strains:
+        g = torch.from_numpy(strain).to(device).to(torch.int64)
+        codes, order = torch.sort(kmer_codes(g, K))
+        for s in (seq, rc):
+            first = kmer_codes(s, K)[offs]
+            idx = torch.searchsorted(codes, first).clamp(max=codes.shape[0] - 1)
+            p = order[idx]
+            fits = (codes[idx] == first) & (p + lens <= g.shape[0])
+            at = (p[uid] + j).clamp(max=g.shape[0] - 1)
+            wrong = torch.zeros(len(nodes), dtype=torch.int64, device=device).index_add_(
+                0, uid, (g[at] != s).to(torch.int64))
+            ok |= fits & (wrong == 0)
+    return bool(ok.all())
+
+
+def check_unitigs(what, table, nodes, strains) -> None:
+    """Every table kmer in exactly one unitig, and every unitig a substring
+    of a strain or of its reverse complement."""
+    from tpu_debruijn_torch import sorting as S
+
+    check(sum(len(s) - K + 1 for s, _, _ in nodes) == len(table), f"{what}: unitig kmers != table kmers")
+    ukm = unitig_kmers(table.spec, nodes, table.kmers.device)
+    check(torch.equal(ukm[S.lex_argsort(ukm)], table.kmers), f"{what}: unitig kmers != table kmers")
+    check(unitigs_in_strains(nodes, strains, table.kmers.device),
+          f"{what}: a unitig is in no strain")
+
+
+def check_color_sets(what, table, nodes, labels, split, strains) -> None:
+    """:func:`check_unitigs`, and every color set sorted (as uint32) and
+    distinct."""
+    check_unitigs(what, table, nodes, strains)
+    nutg = len(nodes)
+    check(len(split) == nutg + 1 and split[0] == 0 and split[-1] == len(labels)
+          and (np.diff(split) >= 1).all(), f"{what}: color-set splits are malformed")
+    lab = labels.astype(np.int64) & 0xFFFFFFFF
+    same_unitig = np.repeat(np.arange(nutg), np.diff(split))
+    inner = same_unitig[1:] == same_unitig[:-1]
+    check((np.diff(lab)[inner] > 0).all(), f"{what}: a color set is not sorted and distinct")
+
+
+def check_eq_classes(ids, classes, pair_label, split) -> None:
+    """Equal ids exactly where the pair arrays give equal sets: each kmer's
+    set is its class's, and no two classes share a set."""
+    ids, pl, sp = (t.cpu().numpy() for t in (ids, pair_label, split))
+    check(len(set(classes)) == len(classes), "two eq classes share a set")
+    class_len = np.array([len(c) for c in classes], np.int64)
+    class_off = np.concatenate([[0], np.cumsum(class_len)])
+    flat = np.array([x for c in classes for x in c], np.int32)
+    lens = np.diff(sp)
+    check(np.array_equal(lens, class_len[ids]), "a kmer's set size differs from its eq class's")
+    kmer_of_pair = np.repeat(np.arange(len(ids)), lens)
+    within = np.arange(len(pl)) - sp[kmer_of_pair]
+    check(np.array_equal(pl, flat[class_off[ids[kmer_of_pair]] + within]),
+          "a kmer's set differs from its eq class's")
+
+
+def popcount8(x: torch.Tensor) -> int:
+    return int(sum(((x >> b) & 1).sum() for b in range(8)))
+
+
+def phase_colored(rng, genome, rich_reads, counters, smi: str, device="cuda") -> dict:
+    """Phase 8: the colored path at full width on four strains of phase 3's
+    genome; launches counted from the set count through both color-set
+    compressions (path "colored")."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import table_to_numpy
+
+    t_phase = time.perf_counter()
+    strains = make_strains(rng, genome, N_STRAINS, SNP_EVERY)
+    reads = np.concatenate([sample_reads(rng, s, STRAIN_COVERAGE, READ_LEN) for s in strains])
+    labels = np.repeat(np.arange(N_STRAINS, dtype=np.int32), len(reads) // N_STRAINS)
+    items = [(r, 0, int(lab)) for r, lab in zip(reads, labels)]
+    kw = dict(stranded=False, min_obs=2)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    table, pair_label, split = timed("count", lambda: F.filter_kmers_set_arrays(
+        items, K, device=device, **kw))
+    res = {join: timed(f"color_sets_join_{join}", lambda: C.compress_kmers_color_sets(
+        table, pair_label, split, join_on_sets=join, device=device)) for join in (False, True)}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+    peak = torch.cuda.max_memory_allocated()
+    n = len(table)
+    out = {"strains": N_STRAINS, "substitutions_per_strain": len(genome) // SNP_EVERY,
+           "coverage_per_strain": STRAIN_COVERAGE, "reads": len(reads),
+           "observations": len(reads) * (READ_LEN - K + 1), "table_kmers": n,
+           "pairs": int(pair_label.shape[0]), "peak_device_bytes": peak}
+    log(f"phase 8: counted {len(reads)} reads of {N_STRAINS} strains to {n} kmers and "
+        f"{out['pairs']} (kmer, color) pairs in {secs['count']:.3f} s; peak {peak} bytes")
+
+    for join, (nodes, labs, spl) in res.items():
+        check_color_sets(f"color sets join_on_sets={join}", table, nodes, labs, spl, strains)
+        out[f"unitigs_join_{join}"] = len(nodes)
+        out[f"color_set_pairs_join_{join}"] = len(labs)
+    out["compress_device_ms"] = profile_device_ms(lambda: C.compress_kmers_color_sets(
+        table, pair_label, split, device=device))
+
+    streamed = timed("streaming_64_chunks", lambda: T.filter_kmers_streaming(
+        [(reads, 0, labels)], K, data_reduce="none", merge="device", colored=True,
+        chunk_reads=29_011, device=device, **kw))
+    want = table_to_numpy(table)
+    got = table_to_numpy(streamed[0])
+    check(all(np.array_equal(got[f], want[f]) for f in want)
+          and torch.equal(streamed[1], pair_label) and torch.equal(streamed[2], split),
+          "filter_kmers_set_arrays != filter_kmers_streaming(colored=True)")
+    del streamed
+
+    eq_table, classes = timed("eq_classes", lambda: F.filter_kmers_eq_classes(
+        items, K, device=device, **kw))
+    got = table_to_numpy(eq_table)
+    check(all(np.array_equal(got[f], want[f]) for f in ("kmers", "exts", "counts")),
+          "the eq-class table != the set table")
+    check_eq_classes(eq_table.data, classes, pair_label, split)
+    out["eq_classes"] = len(classes)
+    # the grouping alone, in both forms (the hashed one forced by dense_limit=0)
+    pk = torch.repeat_interleave(torch.arange(n, device=split.device), torch.diff(split))
+    for form, limit in (("dense", F.DENSE_LIMIT), ("hashed", 0)):
+        ids, cls = timed(f"assign_eq_classes_{form}", lambda: F.assign_eq_classes(
+            pk, pair_label, n, dense_limit=limit, device=device))
+        check(np.array_equal(ids, eq_table.data.cpu().numpy()) and cls == classes,
+              f"assign_eq_classes ({form}) != filter_kmers_eq_classes")
+    del pk, ids, cls
+    scmap = timed("compress_scmap", lambda: T.compress_kmers(
+        eq_table, spec=T.ScmapCompress(), data_field="data", device=device))
+    check(same_unitigs(res[True][0], scmap),
+          "color sets with join_on_sets != compress_kmers(ScmapCompress) of the eq-class table")
+    del eq_table, scmap, res
+
+    out["assembly"] = compare_assembly(table, "phase 8")
+    no_exts = timed("compress_no_exts", lambda: T.compress_kmers_no_exts(
+        K, table.kmers, device=device))
+    check_unitigs("compress_kmers_no_exts", table, no_exts, strains)
+    out["unitigs_no_exts"] = len(no_exts)
+    del no_exts
+
+    censored = F.KmerTable(table.spec, False, table.kmers, table.exts.clone(), table.counts, table.data)
+    timed("remove_censored_exts", lambda: F.remove_censored_exts(censored, device=device))
+    present = C.infer_exts_device(table.spec, False, table.kmers)
+    check(bool(((censored.exts & ~present) == 0).all()), "an extension still points at a missing kmer")
+    out["censored_ext_bits"] = popcount8(table.exts) - popcount8(censored.exts)
+    del censored, present, items, reads, table, pair_label, split
+    torch.cuda.empty_cache()
+
+    out["small"] = colored_small(rich_reads[:SMALL_READS], device)
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"phase 8 (colored path, {smi}): " + json.dumps({k: v for k, v in out.items()
+                                                         if k != "launches"}))
+    return out
+
+
+def colored_small(rich_reads, device) -> dict:
+    """The per-kmer and per-edge Python forms on phase 5's repeat-rich reads
+    with four labels, against the array forms on the same reads:
+    compress_kmers_rich with a union closure equals compress_kmers_color_sets
+    (unitigs and sets), with a non-equality join test it covers every kmer
+    once in no fewer unitigs; the three summarizers equal filter_kmers and
+    the set and eq-class filters."""
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import table_to_numpy
+
+    reads = [(r, 0, i % 4) for i, r in enumerate(rich_reads)]
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    table, sets = F.filter_kmers_set(reads, K, min_obs=2, device=device)
+    t2, pl, sp = F.filter_kmers_set_arrays(reads, K, min_obs=2, device=device)
+    nodes, labels, split = C.compress_kmers_color_sets(t2, pl, sp, device=device)
+    rich = timed("rich_union", lambda: C.compress_kmers_rich(table, sets, reduce=union, device=device))
+    check([(s.tolist(), e, tuple(labels[split[u] : split[u + 1]].tolist()))
+           for u, (s, e, _) in enumerate(nodes)] == [(s.tolist(), e, d) for s, e, d in rich],
+          "compress_kmers_rich (union) != compress_kmers_color_sets")
+    near = timed("rich_join_test", lambda: C.compress_kmers_rich(
+        table, sets, reduce=union, join_test=lambda a, b: abs(len(a) - len(b)) <= 1, device=device))
+    check(sum(len(s) - K + 1 for s, _, _ in near) == len(table) and len(near) >= len(rich),
+          "compress_kmers_rich with a join test lost or repeated a kmer")
+    plain = table_to_numpy(F.filter_kmers(reads, K, min_obs=2, device=device))
+    t, data = timed("summarizer_count", lambda: F.filter_kmers_with_summarizer(
+        reads, K, F.CountFilter(2), device=device))
+    got = table_to_numpy(t)
+    check(all(np.array_equal(got[f], plain[f]) for f in ("kmers", "exts", "counts"))
+          and data == plain["counts"].tolist(), "CountFilter != filter_kmers")
+    _, data = timed("summarizer_set", lambda: F.filter_kmers_with_summarizer(
+        reads, K, F.CountFilterSet(2), device=device))
+    check(data == sets, "CountFilterSet != filter_kmers_set")
+    eq = F.CountFilterEqClass(2)
+    _, ids = timed("summarizer_eq_class", lambda: F.filter_kmers_with_summarizer(
+        reads, K, eq, device=device))
+    inv = {v: key for key, v in eq.eq_classes.items()}
+    check([inv[i] for i in ids] == sets, "CountFilterEqClass ids disagree with the label sets")
+    out = {"reads": len(reads), "table_kmers": len(table), "unitigs": len(nodes),
+           "unitigs_join_test": len(near), "seconds": secs}
+    log("phase 8 (small): " + json.dumps(out))
     return out
 
 
@@ -1257,8 +1676,9 @@ def main(argv=None) -> int:
         main["rank_loop_rounds"] = int(KN.rank_loop.last_rounds)
         main["gather_rows_launches"]["resolve_edges"] = resolve_edges_gathers(table)
         table_main = table_to_numpy(table)
-        del table
         log("phase 3 (main path): " + json.dumps(main))
+        assembly = {"phase 3": compare_assembly(table, "phase 3")}
+        del table
 
         # phase 4: the read-ordered path on the same reads
         ordered = phase_ordered(reads, nodes_main, counters, "cuda")
@@ -1277,8 +1697,15 @@ def main(argv=None) -> int:
         corpus = phase_corpus(os.path.join(tmp, "ecoli.fq"), reads, table_main, nodes_main,
                               rich_reads, counters, "cuda")
         by_path["corpus"] = corpus.pop("launches")
-        del reads, nodes_main, rich_reads
+        del reads, nodes_main
         log("phase 7 (corpus path): " + json.dumps({"device": smi, **corpus}))
+
+        # phase 8: the colored path at full width
+        colored = phase_colored(rng, genome, rich_reads, counters, smi)
+        by_path["colored"] = colored.pop("launches")
+        assembly["phase 8"] = colored.pop("assembly")
+        del rich_reads
+        log("host vs device assembly: " + json.dumps({"device": smi, **assembly}))
 
         for path, launches in by_path.items():
             for name in on_path:

@@ -419,3 +419,28 @@ def test_streaming_cuda_matches_cpu(cuda, k):
         assert len(tp["kmers"]) > 0
         assert all(np.array_equal(tc[x], tp[x]) for x in tp), kw
         assert all(np.array_equal(a, b) for a, b in zip(pc, pp)), kw
+
+
+def _labeled(k):
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 6000).astype(np.uint8)
+    genome[3000:3400] = genome[1000:1400]  # a repeat: branches and several unitigs
+    starts = rng.integers(0, len(genome) - 120, 800)
+    return [(genome[s : s + 120], 0, (i % 4) - 1) for i, s in enumerate(starts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 31, 63])
+def test_policy_entry_points_cuda_match_cpu(cuda, k, tmp_path):
+    """The colored / policy path's entry points on the card equal their CPU
+    runs (chip_smoke.py's phase 6 harness): tables, pair labels, splits, eq
+    classes (both forms), unitigs, color sets, payloads, GFA bytes,
+    inferred and censored exts."""
+    import chip_smoke
+
+    got = {dev: chip_smoke.policy_outputs(_labeled(k), k, dev, str(tmp_path / f"{dev}.gfa"))
+           for dev in ("cuda", "cpu")}
+    assert len(got["cpu"]["set_arrays"][0]) > 0
+    differ = [name for name, want in got["cpu"].items()
+              if not chip_smoke.same_outputs(got["cuda"][name], want)]
+    assert not differ, differ

@@ -105,7 +105,9 @@ def test_streaming_memory_gb_knob(rng):
     _same(ref, TF.filter_kmers_streaming(reads, k, device="cpu", **kw))
     _same(ref, TF.filter_kmers(reads, k, stranded=False, min_obs=2, device="cpu"))
     assert 2e-4 * 1e9 / TF.count_bytes_per_read(TF.KmerSpec(k), 64) < 256
-    # the reckoning grows with the read and the limbs
+    # the reckoning grows with the read and the limbs, the label a limb
+    # of the colored count's key
     spec = TF.KmerSpec(31)
     assert TF.count_bytes_per_read(spec, 150) < TF.count_bytes_per_read(spec, 250)
     assert TF.count_bytes_per_read(spec, 150) < TF.count_bytes_per_read(TF.KmerSpec(63), 182)
+    assert TF.count_bytes_per_read(spec, 150) < TF.count_bytes_per_read(spec, 150, colored=True)

@@ -17,30 +17,52 @@ the corpus path (reads counted in chunks and merged into one table),
     stream_fastx_blocks -> filter_kmers_streaming(merge="device")
     per-read tuples or 2-D blocks -> filter_kmers_streaming(merge="host")
 
-and the read-ordered chain linking,
+the read-ordered chain linking,
 
     filter_kmers(data_reduce="obs_min")
         -> compress.compress_kmer_table_device(first_pos=table.data)
         -> compress.assemble_chains
 
+and the colored path and the policy layer,
+
+    filter.filter_kmers_set_arrays -> compress_kmers_color_sets
+        -> graph.from_flat_output / from_compress_output
+    filter.filter_kmers_set / filter_kmers_eq_classes /
+        filter_kmers_with_summarizer (KmerSummarizer, CountFilter*)
+    compress_kmers(spec=CompressionSpec / SimpleCompress / ScmapCompress,
+                   data_reduce=, join_on_data=, data_field=),
+    compress_kmers_rich, compress_kmers_no_exts,
+    filter.remove_censored_exts(_sharded)
+
 with the modules they run: ``bases``, ``io`` (FASTA/FASTQ reading, whole
 or in packed blocks, with the port's own host codec), ``kmer``, ``exts``,
 ``sorting``, ``filter`` (``data_reduce`` 'label_first', 'min', 'max',
 'sum', 'obs_min' and 'none'; the host and device merges of streaming and
-its colored pairs), ``compress`` (default policy; ``link_chains`` and
-``link_chains_ordered``), ``dna`` (``PackedSeqSet``), ``graph``
-(``BaseGraph``, link table, GFA export), ``convert`` and the kernels in
+its colored pairs; label sets, eq classes, summarizers, censored
+extensions), ``compress`` (every policy; ``link_chains`` and
+``link_chains_ordered``; unitig assembly on the host or on the device),
+``dna`` (``PackedSeqSet``), ``graph`` (``BaseGraph`` with its ``rich``
+sidecar, link table, GFA export), ``convert`` and the kernels in
 ``kernels/``: the two kmer kernels, the gathers and pointer jumps that
 replace the Pallas gather probes, among them the doubling loop of chain
 linking in one launch, and the ruling-set list ranking.
 
-Not ported yet: the summarizer/policy layer (set and eq-class filters,
-``CompressionSpec`` variants, rich compression), ``msp``, ``parallel``,
-the rest of ``graph``/``clean``/``neighbors``/``dna``, and device unitig
-assembly.
+Not ported yet: ``KmerTable``'s ``get``/``get_key_id``/``to_tuples``/
+``save``/``load``, the batched ``read_fastx``, ``msp``, ``parallel``, the
+rest of ``graph`` (``stitch_flat``, ``compress_graph``, walks, save/load
+with the ``rich`` sidecar) and ``clean``/``neighbors``/``dna``, and the
+``dna``/``kmer``/``exts`` helpers the paths above do not run.
 """
 
-from tpu_debruijn_torch.compress import compress_kmers
+from tpu_debruijn_torch.compress import (
+    CompressionSpec,
+    ScmapCompress,
+    SimpleCompress,
+    compress_kmers,
+    compress_kmers_color_sets,
+    compress_kmers_no_exts,
+    compress_kmers_rich,
+)
 from tpu_debruijn_torch.convert import table_from_reference, table_to_numpy
 from tpu_debruijn_torch.filter import KmerTable, PackedReadBlock, filter_kmers, filter_kmers_streaming
 from tpu_debruijn_torch.graph import BaseGraph, DebruijnGraph, from_compress_output
@@ -49,11 +71,17 @@ from tpu_debruijn_torch.kmer import KmerSpec
 
 __all__ = [
     "BaseGraph",
+    "CompressionSpec",
     "DebruijnGraph",
     "KmerSpec",
     "KmerTable",
     "PackedReadBlock",
+    "ScmapCompress",
+    "SimpleCompress",
     "compress_kmers",
+    "compress_kmers_color_sets",
+    "compress_kmers_no_exts",
+    "compress_kmers_rich",
     "filter_kmers",
     "filter_kmers_streaming",
     "from_compress_output",

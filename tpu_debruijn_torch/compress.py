@@ -22,19 +22,34 @@ CompressFromHash, compression.rs:355-615), with the same three steps:
    keeps its stored orientation; unitig ids in increasing chain-minimum
    order.
 
+Unitig sequences are assembled from the chain labels on the device
+(:func:`assemble_unitigs_device`: only the bases and the per-unitig arrays
+cross to the host) under every policy; :func:`assemble_unitigs` assembles
+them on the host from chain labels pulled there (the read-ordered path's
+:func:`assemble_chains`).
+
+The policy layer (compression.rs:34-98): :class:`CompressionSpec` and its
+two shipped forms fold per-kmer data along unitigs with a named reduction
+or a closure and restrict joins to equal labels; :func:`compress_kmers_rich`
+folds arbitrary payload objects under an arbitrary join test evaluated on
+the host over the candidate edges; :func:`compress_kmers_color_sets` folds
+label sets as arrays, by one sort of the (unitig, label) pairs.
+
 The JAX package's TPU workarounds (gather-cliff padding, pow2 table
-padding, packed int32 lanes, the on-device assembly branch for the TPU)
-are not ported.  Unitig sequences are assembled on the host from the chain
-labels.
+padding, packed int32 lanes, the assembly's capacity retries) are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
 from tpu_debruijn_torch import exts as E
+from tpu_debruijn_torch import filter as F
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize
@@ -45,12 +60,17 @@ from tpu_debruijn_torch.kmer import KmerSpec
 LEFT, RIGHT = E.LEFT, E.RIGHT
 
 
-def resolve_edges(spec: KmerSpec, stranded: bool, kmers: torch.Tensor, exts: torch.Tensor):
+def resolve_edges(spec: KmerSpec, stranded: bool, kmers: torch.Tensor, exts: torch.Tensor,
+                  join_labels: Optional[torch.Tensor] = None, return_candidates: bool = False):
     """Per-kmer merge partners for both directions of a sorted unique table.
 
     Returns dict with, for d in {l, r}: ``partner_d`` (n,) int64 target
     row or -1, and ``in_d`` (n,) int64 stored side (0/1) of the target the
-    edge enters.
+    edge enters.  With ``join_labels`` ((n,) int32 or int64), an edge joins
+    only rows of equal labels (ScmapCompress's join test).  With
+    ``return_candidates``, the edges before the mutuality pass: every merge
+    condition applied but a host-evaluated join test
+    (:func:`compress_kmers_rich`).
     """
     n = kmers.shape[0]
     dev = kmers.device
@@ -93,8 +113,13 @@ def resolve_edges(spec: KmerSpec, stranded: bool, kmers: torch.Tensor, exts: tor
             & ~pal_next[sl]
             & (E.num_ext_dir(jexts[sl], in_d) == 1)
         )
+        if join_labels is not None:
+            ok &= join_labels == gather_rows(join_labels, j)  # j = -1 reads row 0, masked
         partners[d] = torch.where(ok, j, -1)
         ins[d] = in_d
+    if return_candidates:
+        return {"partner_l": partners[LEFT], "in_l": ins[LEFT],
+                "partner_r": partners[RIGHT], "in_r": ins[RIGHT]}
     return _enforce_mutual(partners, ins)
 
 
@@ -420,49 +445,163 @@ def unitig_end_exts(exts: torch.Tensor, chains: Chains) -> torch.Tensor:
 
 
 def compress_kmer_table_device(spec: KmerSpec, stranded: bool, kmers: torch.Tensor,
-                               exts: torch.Tensor, first_pos=None, order_cap=None):
+                               exts: torch.Tensor, join_labels=None, first_pos=None,
+                               order_cap=None):
     """Device compression of a sorted unique table: (chains, unitig exts,
     per-kmer contributed base).  compress_kmers_with_hash equivalent
     (compression.rs:588-594).
 
-    With ``first_pos`` (each kmer's first-occurrence observation index,
+    ``join_labels``: see :func:`resolve_edges`.  With ``first_pos`` (each
+    kmer's first-occurrence observation index,
     ``filter_kmers(data_reduce="obs_min")``'s ``data``) chain linking runs
     through :func:`link_chains_ordered`, with ``order_cap`` intervals at
     most (default ``max(2**14, n // 8)``), and the result gains a fourth
     element, ``overflow``.
     """
-    edges = resolve_edges(spec, stranded, kmers, exts)
+    edges = resolve_edges(spec, stranded, kmers, exts, join_labels)
     args = (edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"])
     if first_pos is None:
-        chains, overflow = link_chains(*args), None
-    else:
-        cap = order_cap or max(1 << 14, kmers.shape[0] // 8)
-        chains, overflow = link_chains_ordered(*args, first_pos, cap)
-    u_exts = unitig_end_exts(exts, chains)
-    # the base each kmer adds to its unitig: its oriented last base
+        return _with_ends(spec, kmers, exts, link_chains(*args))
+    cap = order_cap or max(1 << 14, kmers.shape[0] // 8)
+    chains, overflow = link_chains_ordered(*args, first_pos, cap)
+    return _with_ends(spec, kmers, exts, chains) + (overflow,)
+
+
+def _with_ends(spec: KmerSpec, kmers, exts, chains: Chains):
+    """(chains, unitig exts, the base each kmer adds to its unitig: its
+    oriented last base)."""
     contrib = torch.where(
         chains.flip, (~KM.first_base(spec, kmers)) & 3, KM.last_base(spec, kmers)
     )
-    if first_pos is None:
-        return chains, u_exts, contrib
-    return chains, u_exts, contrib, overflow
+    return chains, unitig_end_exts(exts, chains), contrib
 
 
-def _sum_sat_u16(vals: np.ndarray, uid: np.ndarray, n_unitigs: int) -> np.ndarray:
-    acc = np.zeros(n_unitigs, np.int64)
-    np.add.at(acc, uid, vals.astype(np.int64))
-    return np.minimum(acc, 65535).astype(np.int32)
+def _finalize_compress(spec: KmerSpec, kmers, exts, cand_l, cand_r, in_l, in_r, join_l, join_r):
+    """Second half of the rich path, after ``resolve_edges(...,
+    return_candidates=True)``: keep the candidate edges whose join
+    masks hold, enforce mutuality, link chains; (chains, unitig exts,
+    contributed bases) as :func:`compress_kmer_table_device` gives them."""
+    partners = {LEFT: torch.where(join_l, cand_l, -1), RIGHT: torch.where(join_r, cand_r, -1)}
+    edges = _enforce_mutual(partners, {LEFT: in_l, RIGHT: in_r})
+    chains = link_chains(edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"])
+    return _with_ends(spec, kmers, exts, chains)
+
+
+# ---------------------------------------------------------------------------
+# the policy layer: how per-kmer data folds along unitigs
+# ---------------------------------------------------------------------------
+
+
+class CompressionSpec:
+    """Pluggable unitig-merge policy (compression.rs:34-38).
+
+    ``reduce`` folds per-item data along the unitig: a named associative op
+    (``"sum_sat_u16"``, ``"sum"``, ``"max"``, ``"min"``, ``"first"``) or a
+    closure ``reduce(path_data, item_data) -> data`` folded on the host in
+    unitig path order.  ``join_labels``: None, or a callable mapping item
+    data to an int label, or True for the data itself; two adjacent items
+    merge only where their labels are equal (the reference's ``join_test``
+    restricted to equivalence tests, as ScmapCompress uses it,
+    compression.rs:84-98).
+    """
+
+    def __init__(self, reduce="sum_sat_u16", join_labels=None):
+        self.reduce = reduce
+        self.join_labels = join_labels
+
+    def label_array(self, data: np.ndarray):
+        """Per-item int32 labels for the equality join mask, or None."""
+        if self.join_labels is None:
+            return None
+        if self.join_labels is True:
+            return np.asarray(data, np.int32)
+        return np.asarray([self.join_labels(int(d)) for d in np.asarray(data)], np.int32)
+
+
+class SimpleCompress(CompressionSpec):
+    """Closure or named-op reduce, unconditional join (compression.rs:40-65)."""
+
+    def __init__(self, reduce):
+        super().__init__(reduce=reduce, join_labels=None)
+
+
+class ScmapCompress(CompressionSpec):
+    """Join only equal data; the unitig keeps that data (compression.rs:68-98)."""
+
+    def __init__(self):
+        super().__init__(reduce="first", join_labels=True)
+
+
+def _reduce_np(op: str, vals: np.ndarray, uid: np.ndarray, n_unitigs: int) -> np.ndarray:
+    """A named reduction of ``vals`` by unitig id, in numpy (the JAX
+    package's function): "first" writes every row, so the last live row in
+    slot order wins."""
+    if op == "sum_sat_u16":
+        acc = np.zeros(n_unitigs, np.int64)
+        np.add.at(acc, uid, vals.astype(np.int64))
+        return np.minimum(acc, F.COUNT_MAX).astype(np.int32)
+    if op == "sum":
+        acc = np.zeros(n_unitigs, np.int64)
+        np.add.at(acc, uid, vals.astype(np.int64))
+        return acc.astype(np.int32)
+    if op == "max":
+        acc = np.full(n_unitigs, np.iinfo(np.int32).min, np.int32)
+        np.maximum.at(acc, uid, vals.astype(np.int32))
+        return acc
+    if op == "min":
+        acc = np.full(n_unitigs, np.iinfo(np.int32).max, np.int32)
+        np.minimum.at(acc, uid, vals.astype(np.int32))
+        return acc
+    if op == "first":  # all-equal data (ScmapCompress)
+        acc = np.zeros(n_unitigs, np.int32)
+        acc[uid] = vals
+        return acc
+    raise ValueError(op)
+
+
+def _fold_closure(fn, vals, uid, pos, n_unitigs) -> np.ndarray:
+    """Fold a reduce closure over int data in unitig path order, left to
+    right (build_node's fold, compression.rs:510,531); 0 for a unitig with
+    no item."""
+    acc = _fold_objects(fn, [int(v) for v in vals], np.arange(len(vals)), uid, pos, n_unitigs)
+    return np.asarray([0 if a is None else a for a in acc], np.int32)
+
+
+def _fold_objects(fn, payloads, idxs, uid, pos, n_unitigs) -> list:
+    """Fold payload objects per unitig in path order: row i's payload is
+    ``payloads[idxs[i]]``.  The accumulator starts as the leftmost item's
+    payload object itself, so ``fn`` must return a new object, not mutate
+    its arguments; valid for associative and commutative reduces."""
+    acc = [None] * n_unitigs
+    seen = [False] * n_unitigs
+    for i in np.lexsort((pos, uid)):
+        u = int(uid[i])
+        o = payloads[int(idxs[i])]
+        acc[u] = fn(acc[u], o) if seen[u] else o
+        seen[u] = True
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# unitig assembly: on the host, and on the card
+# ---------------------------------------------------------------------------
 
 
 def assemble_unitigs_flat(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
-                          first_item, first_flip, nutg: int, u_exts, contrib, data_np):
+                          first_item, first_flip, nutg: int, u_exts, contrib, data_np, *,
+                          data_reduce="sum_sat_u16"):
     """Host: chain labels -> flat unitig buffers, with no per-unitig loop.
 
     Returns ``(seq_flat uint8, out_lengths int64, u_exts int32, data
-    int32)``; data is the u16-saturating sum of each unitig's counts.
+    int32)``, the ``BaseGraph.add_flat`` input: ``data_np`` folded per
+    unitig by ``data_reduce``, a name of :func:`_reduce_np` or a closure
+    (:func:`_fold_closure`).
     """
     live = uid >= 0
-    data_red = _sum_sat_u16(data_np[live], uid[live], nutg)
+    if callable(data_reduce):
+        data_red = _fold_closure(data_reduce, data_np[live], uid[live], pos[live], nutg)
+    else:
+        data_red = _reduce_np(data_reduce, data_np[live], uid[live], nutg)
     out_lengths = (lengths[:nutg] + spec.k - 1).astype(np.int64)
     offsets = np.zeros(nutg + 1, np.int64)
     np.cumsum(out_lengths, out=offsets[1:])
@@ -480,26 +619,32 @@ def assemble_unitigs_flat(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
     return seq_flat, out_lengths, np.asarray(u_exts[:nutg], np.int32), data_red
 
 
+def _nodes(seq_flat, out_lengths, u_exts, data) -> list:
+    """Flat unitig buffers -> [(bases, exts, data)]; ``data`` is any
+    sequence of per-unitig values."""
+    offsets = np.zeros(len(out_lengths) + 1, np.int64)
+    np.cumsum(out_lengths, out=offsets[1:])
+    return [(seq_flat[offsets[u] : offsets[u + 1]], int(u_exts[u]), data[u])
+            for u in range(len(out_lengths))]
+
+
 def assemble_unitigs(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
-                     first_item, first_flip, nutg: int, u_exts, contrib, data_np):
+                     first_item, first_flip, nutg: int, u_exts, contrib, data_np, *,
+                     data_reduce="sum_sat_u16"):
     """Host: chain labels -> unitig list [(bases, exts, data)]."""
     seq_flat, out_lengths, u_exts_t, data_red = assemble_unitigs_flat(
         spec, kmers, uid, pos, lengths, first_item, first_flip, nutg,
-        u_exts, contrib, data_np,
+        u_exts, contrib, data_np, data_reduce=data_reduce,
     )
-    offsets = np.zeros(nutg + 1, np.int64)
-    np.cumsum(out_lengths, out=offsets[1:])
-    return [
-        (seq_flat[offsets[u] : offsets[u + 1]], int(u_exts_t[u]), int(data_red[u]))
-        for u in range(nutg)
-    ]
+    return _nodes(seq_flat, out_lengths, u_exts_t, data_red.tolist())
 
 
 def assemble_chains(spec: KmerSpec, kmers: torch.Tensor, chains: Chains, u_exts, contrib,
                     counts) -> list:
     """Host: :func:`assemble_unitigs` on the output of
-    :func:`compress_kmer_table_device` for a table's ``kmers`` and
-    ``counts``, wherever they lie."""
+    :func:`compress_kmer_table_device` for a table's ``kmers`` and per-kmer
+    data ``counts``, wherever they lie: every chain label crosses to the
+    host."""
     cpu = lambda t: t.cpu().numpy()
     return assemble_unitigs(
         spec,
@@ -516,17 +661,243 @@ def assemble_chains(spec: KmerSpec, kmers: torch.Tensor, chains: Chains, u_exts,
     )
 
 
-def compress_kmers(table, *, device="cuda"):
-    """KmerTable -> list of unitigs [(bases, exts, data)] (compression.rs:588).
+def assemble_unitigs_device(spec: KmerSpec, kmers: torch.Tensor, chains: Chains, contrib,
+                            counts=None):
+    """Unitig assembly on the chains' device: the flat layout of
+    :func:`assemble_unitigs_flat`, so that only the bases (a byte each) and
+    the per-unitig arrays need cross to the host.
 
-    The default policy of the JAX package: every mergeable pair merges and
-    a unitig's data is the u16-saturating sum of its kmers' counts.  The
-    table is moved to ``device`` first.
+    Unitig u holds ``out_lengths[u] = length[u] + K - 1`` bases from offset
+    ``sum(out_lengths[:u])``: the first K - 1 of its first kmer read in its
+    orientation, then every item's oriented last base in path order
+    (build_node, compression.rs:483-541).  Every item lies in one unitig,
+    so there are n + n_unitigs (K - 1) bases, known without reading the
+    card.
+
+    Returns (seq (n + n_unitigs (K - 1),) uint8, out_lengths (n_unitigs,)
+    int64), and with ``counts`` also data (n_unitigs,) int32: each unitig's
+    counts summed and saturated at 65535, and 65535 for a unitig of more
+    than 65535 items whatever its counts (the JAX package's rule; with
+    every count at least 1 the two agree).
+    """
+    k = spec.k
+    n, nutg = kmers.shape[0], chains.n_unitigs
+    dev = kmers.device
+    out_len = chains.length + (k - 1)
+    offsets = torch.cumsum(out_len, 0) - out_len
+    seq = torch.empty(n + nutg * (k - 1), dtype=torch.uint8, device=dev)
+    # each item's base lands at K - 1 + its position
+    seq[gather_rows(offsets, chains.uid) + (k - 1) + chains.pos] = contrib.to(torch.uint8)
+    # the K - 1 head bases of each unitig, from its first kmer as oriented
+    w_in = torch.arange(k - 1, device=dev)
+    flip = chains.first_flip.to(torch.bool)[:, None]
+    fk = gather_rows(kmers, chains.first_item)[:, None, :].expand(-1, k - 1, -1)
+    b = KM.get_base_dyn(spec, fk, torch.where(flip, k - 1 - w_in, w_in))
+    seq[offsets[:, None] + w_in] = torch.where(flip, 3 - b, b).to(torch.uint8)
+    if counts is None:
+        return seq, out_len
+    sums = torch.zeros(nutg, dtype=torch.int64, device=dev).index_add_(
+        0, chains.uid, counts.to(torch.int64))
+    data = torch.where(chains.length > F.COUNT_MAX, F.COUNT_MAX, sums.clamp(max=F.COUNT_MAX))
+    return seq, out_len, data.to(torch.int32)
+
+
+def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device="cuda"):
+    """KmerTable -> (seq_flat uint8, out_lengths int64, u_exts int32, data
+    int32) as numpy, compressed and assembled on ``device``
+    (:func:`assemble_unitigs_device`): the default policy, each unitig's
+    data the u16-saturating sum of its counts.  ``cap_bases`` sizes the JAX
+    package's static output buffer; it is accepted and has no effect, as
+    the output size is exact here.
+    """
+    if len(table) == 0:
+        return (np.zeros(0, np.uint8), np.zeros(0, np.int64), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    kmers = table.kmers.to(device)
+    chains, u_exts, contrib = compress_kmer_table_device(
+        table.spec, table.stranded, kmers, table.exts.to(device))
+    seq, out_len, data = assemble_unitigs_device(table.spec, kmers, chains, contrib,
+                                                 table.counts.to(device))
+    cpu = lambda t, dt: t.cpu().numpy().astype(dt)
+    return cpu(seq, np.uint8), cpu(out_len, np.int64), cpu(u_exts, np.int32), cpu(data, np.int32)
+
+
+def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = False,
+                   data_field: str = "counts", spec: Optional[CompressionSpec] = None,
+                   device="cuda"):
+    """KmerTable -> list of unitigs [(bases, exts, data)] on ``device``
+    (compress_kmers_with_hash, compression.rs:588).
+
+    The policy comes from ``spec`` (a :class:`CompressionSpec`) or from the
+    shorthand knobs: ``data_reduce`` folds the per-kmer data of the table's
+    ``data_field`` column, and ``join_on_data`` lets only equal data merge
+    (ScmapCompress's join test, compression.rs:84-98).  Sequences assemble
+    on ``device`` (:func:`assemble_unitigs_device`) under every policy; the
+    data folds there too for "sum_sat_u16", and on the host from each
+    item's unitig and position for any other reduce (:func:`_fold_data`).
     """
     if len(table) == 0:
         return []
+    data = getattr(table, data_field)
+    labels = data
+    if spec is not None:
+        data_reduce = spec.reduce
+        label_np = spec.label_array(data.cpu().numpy())
+        join_on_data = label_np is not None
+        if join_on_data:
+            labels = torch.from_numpy(label_np)
     kmers = table.kmers.to(device)
     chains, u_exts, contrib = compress_kmer_table_device(
-        table.spec, table.stranded, kmers, table.exts.to(device)
+        table.spec, table.stranded, kmers, table.exts.to(device),
+        join_labels=labels.to(device=device, dtype=torch.int32) if join_on_data else None,
     )
-    return assemble_chains(table.spec, kmers, chains, u_exts, contrib, table.counts)
+    seq, out_len = assemble_unitigs_device(table.spec, kmers, chains, contrib)
+    folded = _fold_data(data_reduce, data.to(device), chains)
+    return _nodes(seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy(), folded.tolist())
+
+
+def _fold_data(data_reduce, data: torch.Tensor, chains: Chains) -> np.ndarray:
+    """Each unitig's ``data`` folded by ``data_reduce`` as int32 numpy:
+    "sum_sat_u16" on the chains' device (only the sums cross to the host),
+    any other named op (:func:`_reduce_np`) or closure
+    (:func:`_fold_closure`) on the host from each item's unitig and
+    position."""
+    if data_reduce == "sum_sat_u16":
+        sums = torch.zeros(chains.n_unitigs, dtype=torch.int64, device=data.device)
+        sums.index_add_(0, chains.uid, data.to(torch.int64))
+        return sums.clamp(max=F.COUNT_MAX).to(torch.int32).cpu().numpy()
+    uid, vals = chains.uid.cpu().numpy(), data.cpu().numpy()
+    if callable(data_reduce):
+        return _fold_closure(data_reduce, vals, uid, chains.pos.cpu().numpy(), chains.n_unitigs)
+    return _reduce_np(data_reduce, vals, uid, chains.n_unitigs)
+
+
+def compress_kmers_rich(table, payloads, spec=None, *, reduce=None, join_test=None,
+                        device="cuda") -> list:
+    """Path compression with arbitrary payload objects (CompressionSpec<D>,
+    compression.rs:34-38): ``payloads`` is a list aligned with the table's
+    rows, ``reduce(acc, item) -> acc`` folds them along each unitig and
+    ``join_test(d1, d2) -> bool`` decides each merge.  ``spec`` may be any
+    object with ``.reduce`` and ``.join_test`` methods.
+
+    The card resolves the candidate edges under every merge condition but
+    the join test; the host evaluates ``join_test`` on those candidates
+    only (the reference calls it once an extension, compression.rs:426);
+    the masks go back to the card for mutuality and chain linking; the
+    payloads fold per unitig in path order.  ``join_test`` must be
+    symmetric and ``reduce`` associative and commutative, returning a new
+    object.  Returns [(bases, exts, payload)].
+    """
+    n = len(table)
+    if n == 0:
+        return []
+    if spec is not None:
+        reduce, join_test = spec.reduce, spec.join_test
+    if reduce is None:
+        reduce = lambda a, b: a
+    kmers, exts = table.kmers.to(device), table.exts.to(device)
+    cand = resolve_edges(table.spec, table.stranded, kmers, exts, return_candidates=True)
+    joins = []
+    for key in ("partner_l", "partner_r"):
+        jm = np.ones(n, bool)
+        if join_test is not None:
+            arr = cand[key].cpu().numpy()
+            for i in np.nonzero(arr >= 0)[0]:
+                jm[i] = bool(join_test(payloads[int(i)], payloads[int(arr[i])]))
+        joins.append(torch.from_numpy(jm).to(device))
+    chains, u_exts, contrib = _finalize_compress(
+        table.spec, kmers, exts, cand["partner_l"], cand["partner_r"], cand["in_l"],
+        cand["in_r"], *joins)
+    seq, out_len = assemble_unitigs_device(table.spec, kmers, chains, contrib)
+    uid, pos = chains.uid.cpu().numpy(), chains.pos.cpu().numpy()
+    live = np.nonzero(uid >= 0)[0]
+    objs = _fold_objects(reduce, payloads, live, uid[live], pos[live], chains.n_unitigs)
+    return _nodes(seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy(), objs)
+
+
+def _fold_pairs_device(pu: torch.Tensor, pl: torch.Tensor):
+    """Per-unitig label-set union: the (unitig, label) pairs of the live
+    rows (``pu >= 0``), sorted by unitig and then by label as a uint32, each
+    once.  One sort of the pairs and their run starts, on their device;
+    returns (uids int64, labels int32)."""
+    live = torch.nonzero(pu >= 0).flatten()
+    key = torch.stack([gather_rows(pu, live), gather_rows(pl, live).to(torch.int64) & KM.M32], dim=1)
+    key = gather_rows(key, S.lex_argsort(key))
+    key = gather_rows(key, torch.nonzero(S.run_starts(key)).flatten())
+    return key[:, 0].contiguous(), key[:, 1].to(torch.int32)
+
+
+def compress_kmers_color_sets(table, pair_label, split, *, join_on_sets: bool = False,
+                              device="cuda"):
+    """Fold label sets ("colors") through compression as arrays: no Python
+    object a kmer, no Python call an edge.
+
+    Row i's set is ``pair_label[split[i]:split[i + 1]]``
+    (:func:`~tpu_debruijn_torch.filter.filter_kmers_set_arrays`; tensors or
+    numpy arrays); a unitig's set is the sorted union of its kmers' sets
+    (``SimpleCompress`` extending and deduplicating ``Vec<u8>`` colors,
+    compression.rs:40-65).  With ``join_on_sets`` kmers merge only where
+    their sets are equal (ScmapCompress, compression.rs:68-98), decided by
+    eq-class ids as join labels.  Sequences assemble on ``device``.
+
+    Returns (nodes, out_labels int32, out_split int64), as numpy: ``nodes``
+    is [(bases, exts, data)], data the eq-class id with ``join_on_sets``
+    and 0 without; unitig u's set is ``out_labels[out_split[u]:out_split[u + 1]]``.
+    """
+    n = len(table)
+    if n == 0:
+        return [], np.zeros(0, np.int32), np.zeros(1, np.int64)
+    pair_label = F.as_tensor(pair_label, torch.int32, device)
+    split = F.as_tensor(split, torch.int64, device)
+    labels = F.eq_class_ids(pair_label, split)[0] if join_on_sets else None
+    kmers = table.kmers.to(device)
+    chains, u_exts, contrib = compress_kmer_table_device(
+        table.spec, table.stranded, kmers, table.exts.to(device), join_labels=labels)
+    seq, out_len = assemble_unitigs_device(table.spec, kmers, chains, contrib)
+    node_data = (gather_rows(labels, chains.first_item).tolist() if join_on_sets
+                 else [0] * chains.n_unitigs)
+    nodes = _nodes(seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy(), node_data)
+    slot_of_pair = torch.repeat_interleave(torch.arange(n, device=device), torch.diff(split))
+    uids, out_labels = _fold_pairs_device(gather_rows(chains.uid, slot_of_pair), pair_label)
+    out_split = torch.searchsorted(uids, torch.arange(chains.n_unitigs + 1, device=device))
+    return nodes, out_labels.cpu().numpy(), out_split.cpu().numpy()
+
+
+def infer_exts_device(spec: KmerSpec, stranded: bool, kmers: torch.Tensor) -> torch.Tensor:
+    """Extension bytes from set membership alone (compress_kmers_no_exts,
+    compression.rs:628-646): bit ``b + 4 d`` is set iff the neighbor by
+    base b in direction d, canonical unless stranded, is a row of the
+    sorted unique ``kmers``."""
+    return F.neighbor_bits(spec, stranded, kmers, kmers)[0]
+
+
+def compress_kmers_no_exts(k: int, kmers, data=None, *, stranded: bool = False,
+                           data_reduce="sum_sat_u16", join_on_data: bool = False,
+                           spec: Optional[CompressionSpec] = None, device="cuda") -> list:
+    """A kmer set without extensions -> unitig list (compress_kmers_no_exts,
+    compression.rs:619-659).
+
+    ``kmers`` is an (n, W) uint32 limb array (or an int64 limb tensor), in
+    any order; a duplicate keeps its first row's ``data`` (an optional
+    aligned int payload).  On ``device`` the kmers are sorted and
+    deduplicated, their extensions inferred (:func:`infer_exts_device`),
+    and :func:`compress_kmers` runs with ``data_field="data"``.
+    """
+    kspec = KmerSpec(k)
+    if not torch.is_tensor(kmers):
+        kmers = np.asarray(kmers, np.uint32).astype(np.int64)
+    kmers = F.as_tensor(kmers, torch.int64, device).reshape(-1, kspec.w)
+    data = torch.zeros(kmers.shape[0]) if data is None else data
+    data = F.as_tensor(data, torch.int32, device)
+    # a stable sort keeps each run of duplicates in input order
+    perm = S.lex_argsort(kmers)
+    kmers, data = gather_rows(kmers, perm), gather_rows(data, perm)
+    keep = torch.nonzero(S.run_starts(kmers)).flatten()
+    kmers, data = gather_rows(kmers, keep), gather_rows(data, keep)
+    n = kmers.shape[0]
+    if n == 0:
+        return []
+    table = F.KmerTable(kspec, stranded, kmers, infer_exts_device(kspec, stranded, kmers),
+                        torch.ones(n, dtype=torch.int32, device=device), data)
+    return compress_kmers(table, data_reduce=data_reduce, join_on_data=join_on_data,
+                          data_field="data", spec=spec, device=device)

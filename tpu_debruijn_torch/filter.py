@@ -27,6 +27,13 @@ sorted unique table kept on the device (``merge="device"``,
 static-shape state of that merge (sentinel rows, block compaction,
 capacity growth, lagged confirmation and replays, power-of-two row
 padding) is gone.
+
+The policy layer (filter.rs:27-101): label sets
+(:func:`filter_kmers_set_arrays`, one :func:`count_kmer_pairs` batch rolled
+up per kmer), eq classes (:func:`eq_class_ids`, by one sort), pluggable
+summarizers called on the host over the card's sorted observations
+(:func:`filter_kmers_with_summarizer`), and censored-extension repair by
+one search of each kmer's eight neighbors (:func:`neighbor_bits`).
 """
 
 from __future__ import annotations
@@ -45,19 +52,33 @@ from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kmer import M32, KmerSpec
 
 __all__ = [
+    "CountFilter",
+    "CountFilterEqClass",
+    "CountFilterSet",
+    "KmerSummarizer",
     "KmerTable",
     "PackedReadBlock",
+    "assign_eq_classes",
     "canonicalize",
     "count_bytes_per_read",
     "count_kmer_pairs",
     "count_kmers",
+    "eq_class_ids",
     "extract_kmers",
     "filter_kmers",
+    "filter_kmers_eq_classes",
+    "filter_kmers_set",
+    "filter_kmers_set_arrays",
     "filter_kmers_streaming",
+    "filter_kmers_with_summarizer",
     "merge_unique",
+    "neighbor_bits",
     "obs_row_words",
     "pack_obs_rows",
     "pad_reads",
+    "remove_censored_exts",
+    "remove_censored_exts_device",
+    "remove_censored_exts_sharded",
     "row_limbs",
     "unpack_2bit",
 ]
@@ -266,6 +287,14 @@ def count_kmer_pairs(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
     return row_limbs(urows, w), urows[:, w + 1].contiguous(), _run_or8(srows[:, w], ends), counts
 
 
+def _pair_keys(spec: KmerSpec, bases, lengths, seq_exts, labels, *, stranded: bool):
+    """:func:`count_kmer_pairs` in the colored state's form: (n, W + 1)
+    int64 keys, the label a uint32 limb below the kmer, with exts and
+    counts."""
+    km, lab, ex, cn = count_kmer_pairs(spec, bases, lengths, seq_exts, labels, stranded=stranded)
+    return torch.cat([km, (lab.to(torch.int64) & M32)[:, None]], dim=1), ex, cn
+
+
 def _empty_table(spec: KmerSpec, stranded: bool, device, report_all: bool = False) -> KmerTable:
     z = torch.zeros(0, dtype=torch.int32, device=device)
     zk = torch.zeros((0, spec.w), dtype=torch.int64, device=device)
@@ -310,20 +339,342 @@ def filter_kmers(
     items = [s for s in seqs if len(s[0]) >= k]
     if not items:
         return _empty_table(spec, stranded, device, report_all)
-    bases, lengths = pad_reads([s[0] for s in items], min_len=k, pad_to=16)
+    return count_kmers(spec, *_read_batch(spec, items, device), stranded=stranded,
+                       min_obs=min_obs, data_reduce=data_reduce, report_all=report_all)
+
+
+def as_tensor(a, dtype, device=None) -> torch.Tensor:
+    """A tensor (on its device unless ``device`` is given) or an array-like
+    (on the CPU unless given) as a ``dtype`` tensor."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+    return t.to(device=t.device if device is None else device, dtype=dtype)
+
+
+def _read_batch(spec: KmerSpec, items, device, labels=None):
+    """(bases, seq_exts, label) items, none shorter than K, as one padded
+    batch on ``device``: (bases, lengths, seq_exts, labels) tensors; the
+    items' labels unless ``labels`` is given."""
+    bases, lengths = pad_reads([s[0] for s in items], min_len=spec.k, pad_to=16)
     seq_exts = np.array([s[1] for s in items], dtype=np.int32)
-    labels = np.array([s[2] for s in items], dtype=np.int32)
-    return count_kmers(
-        spec,
-        torch.from_numpy(bases).to(device),
-        torch.from_numpy(lengths).to(device),
-        torch.from_numpy(seq_exts).to(device),
-        torch.from_numpy(labels).to(device),
+    if labels is None:
+        labels = np.array([s[2] for s in items], dtype=np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (bases, lengths, seq_exts, labels))
+
+
+# ---------------------------------------------------------------------------
+# label sets, eq classes and summarizers: the policy layer
+# ---------------------------------------------------------------------------
+
+
+def filter_kmers_set_arrays(seqs, k: int, *, stranded: bool = False, min_obs: int = 1,
+                            device="cuda"):
+    """Array-native CountFilterSet (filter.rs:68-101): each kmer's data is
+    the set of labels ("colors") it was observed with.
+
+    Returns (KmerTable, pair_label (P,) int32, split (n + 1,) int64), all
+    on ``device``: row i's labels, sorted as uint32 and distinct, are
+    ``pair_label[split[i]:split[i + 1]]``; ``min_obs`` applies to each
+    kmer's total count.  One :func:`count_kmer_pairs` batch rolled up per
+    kmer, as the colored device merge of :func:`filter_kmers_streaming`
+    does."""
+    spec = KmerSpec(k)
+    device = torch.device(device)
+    items = [s for s in seqs if len(s[0]) >= k]
+    if not items:
+        return (_empty_table(spec, stranded, device), torch.zeros(0, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int64, device=device))
+    keys, exts, counts = _pair_keys(spec, *_read_batch(spec, items, device), stranded=stranded)
+    return _pair_table(spec, stranded, min_obs, keys, exts, counts)
+
+
+def filter_kmers_set(seqs, k: int, *, stranded: bool = False, min_obs: int = 1, device="cuda"):
+    """CountFilterSet with Python data: (KmerTable on ``device``, a tuple of
+    labels per table row), from :func:`filter_kmers_set_arrays`."""
+    table, pair_label, split = filter_kmers_set_arrays(seqs, k, stranded=stranded,
+                                                       min_obs=min_obs, device=device)
+    labels, split = pair_label.tolist(), split.tolist()
+    return table, [tuple(labels[split[i] : split[i + 1]]) for i in range(len(table))]
+
+
+DENSE_LIMIT = 1 << 26  # signature-matrix elements above which eq classes hash their runs
+_HASH_MULS = (0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F)
+
+
+def assign_eq_classes(pair_kmer, pair_label, n: int, *, dense_limit: int = DENSE_LIMIT,
+                      device="cuda"):
+    """Eq-class ids from sorted (kmer slot, label) pairs (the JAX package's
+    function), grouped on ``device``.
+
+    ``pair_kmer`` is ascending with each slot's labels sorted, so a slot's
+    label set is a contiguous run.  Ids are numbered in first-appearance
+    order over slots 0..n-1 (CountFilterEqClass's insertion order); see
+    :func:`eq_class_ids` for the two forms of the grouping.
+
+    Returns (ids (n,) int32, eq_classes: the label tuple of each id) as
+    numpy and Python values.
+    """
+    if n == 0:
+        return np.zeros(0, np.int32), []
+    pk = as_tensor(pair_kmer, torch.int64, device)
+    pl = as_tensor(pair_label, torch.int64, device)
+    split = torch.searchsorted(pk, torch.arange(n + 1, device=pk.device))
+    ids, first, dense = eq_class_ids(pl, split, dense_limit=dense_limit)
+    return ids.cpu().numpy(), _class_tuples(pl, split, first, dense)
+
+
+def eq_class_ids(pair_label: torch.Tensor, split: torch.Tensor, *,
+                 dense_limit: int = DENSE_LIMIT):
+    """Eq-class ids of the n = len(split) - 1 slots whose label runs are
+    ``pair_label[split[i]:split[i + 1]]``, on their device, by one sort.
+
+    Up to ``dense_limit`` elements of an (n, longest run) signature matrix
+    (a slot's labels, then -1) the rows themselves are sorted, as the JAX
+    package's row unique groups them: a label -1 equals the padding there.
+    Above it each run is hashed (:func:`_run_digests`) and the digests are
+    sorted.  The sort is stable, so a class's first sorted row is its first
+    slot.
+
+    Returns (ids (n,) int32, each class's first slot in id order, whether
+    the dense form grouped them), as tensors and a bool.
+    """
+    dev = pair_label.device
+    n = split.shape[0] - 1
+    lens = torch.diff(split)
+    slot = torch.repeat_interleave(torch.arange(n, device=dev), lens)
+    col = torch.arange(pair_label.shape[0], device=dev) - gather_rows(split, slot)
+    maxlen = max(int(lens.max()), 1)
+    dense = n * maxlen <= dense_limit
+    if dense:
+        rows = torch.full((n, maxlen), -1, dtype=torch.int64, device=dev)
+        rows[slot, col] = pair_label.to(torch.int64)
+        rows &= M32  # limbs for the sort; equal as int32 labels iff equal here
+    else:
+        rows = _run_digests(pair_label.to(torch.int64), slot, col, lens)
+    perm = S.lex_argsort(rows)
+    starts = S.run_starts(gather_rows(rows, perm))
+    first = perm[starts]
+    order = torch.argsort(first)
+    remap = torch.empty_like(order)
+    remap[order] = torch.arange(order.shape[0], device=dev)
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    ids[perm] = remap[torch.cumsum(starts, 0) - 1].to(torch.int32)
+    return ids, first[order], dense
+
+
+def _signed64(x: int) -> int:
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _run_digests(labels, slot, col, lens) -> torch.Tensor:
+    """Each slot's label run as the 32-bit limbs of two order-sensitive
+    64-bit polynomial digests, then its length: digest j of a run is the sum
+    of (label + 1) r_j^col over it, wrapping mod 2^64 (the JAX package's
+    hashed form, in int64's two's complement; ``label + 1`` keeps a label 0
+    from vanishing).  Runs are sorted and distinct, so equal sets give equal
+    digests; a collision is about n^2 / 2^128 likely."""
+    n = lens.shape[0]
+    terms = labels + 1
+    limbs = []
+    for r in _HASH_MULS:
+        # r^col by squaring
+        pw = torch.ones_like(col)
+        base, c = r, col.clone()
+        while bool((c > 0).any()):
+            pw = torch.where((c & 1) == 1, pw * _signed64(base), pw)
+            base = base * base % (1 << 64)
+            c >>= 1
+        h = torch.zeros(n, dtype=torch.int64, device=labels.device).index_add_(0, slot, terms * pw)
+        limbs += [(h >> 32) & M32, h & M32]
+    return torch.stack(limbs + [lens], dim=1)
+
+
+def _class_tuples(pair_label: torch.Tensor, split: torch.Tensor, first: torch.Tensor,
+                 dense: bool) -> list:
+    """The label tuple of each class, read from its first slot's run alone
+    (only those labels cross to the host); the dense form leaves out
+    negative labels, as the JAX package's padded rows do."""
+    lo = gather_rows(split, first)
+    ln = gather_rows(split, first + 1) - lo
+    ends = torch.cumsum(ln, 0)
+    idx = torch.repeat_interleave(lo - (ends - ln), ln) + torch.arange(int(ends[-1]),
+                                                                       device=split.device)
+    labels = gather_rows(pair_label, idx).tolist()
+    bounds = [0] + ends.tolist()
+    return [tuple(x for x in labels[a:b] if not dense or x >= 0)
+            for a, b in zip(bounds, bounds[1:])]
+
+
+def filter_kmers_eq_classes(seqs, k: int, *, stranded: bool = False, min_obs: int = 1,
+                            device="cuda"):
+    """CountFilterEqClass (the Cell Ranger pattern on the reference's
+    KmerSummarizer trait, filter.rs:27-38): kmers with the same label set
+    share an eq-class id.  Returns (KmerTable on ``device`` whose data is
+    the id, eq_classes: the label tuple of each id)."""
+    table, pair_label, split = filter_kmers_set_arrays(seqs, k, stranded=stranded,
+                                                       min_obs=min_obs, device=device)
+    if len(table) == 0:
+        return table, []
+    table.data, first, dense = eq_class_ids(pair_label, split)
+    return table, _class_tuples(pair_label, split, first, dense)
+
+
+def _sorted_obs(spec: KmerSpec, stranded: bool, bases, lengths, seq_exts, labels):
+    """Every valid observation of a padded read batch, canonical and stably
+    sorted by kmer (:func:`_sorted_runs`, so each run is in read order), on
+    the host: (kmers (m, W) uint32, exts (m,) int32, labels (m,) int32, run
+    starts, run ends)."""
+    w = spec.w
+    srows, _, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts,
+                                          labels.to(torch.int32)[:, None], stranded)
+    cpu = lambda t: t.cpu().numpy()
+    return (KM.to_numpy(row_limbs(srows, w)), cpu(srows[:, w]), cpu(srows[:, w + 1]),
+            cpu(starts), cpu(ends))
+
+
+class KmerSummarizer:
+    """The pluggable per-kmer reduction (KmerSummarizer trait,
+    filter.rs:27-38).  ``summarize(kmer, exts, payloads)`` receives every
+    observation of one kmer: its canonical ``kmer`` limbs (W,) uint32, the
+    (m,) int32 ``exts`` and the list of m per-observation data objects, in
+    read order; it returns ``(is_valid, folded_exts, summary_data)``."""
+
+    def summarize(self, kmer: np.ndarray, exts: np.ndarray, payloads: list):
+        raise NotImplementedError
+
+
+class CountFilter(KmerSummarizer):
+    """count >= min_obs; data = u16-saturated count (filter.rs:40-63)."""
+
+    def __init__(self, min_obs: int):
+        self.min_obs = min_obs
+
+    def summarize(self, kmer, exts, payloads):
+        count = min(len(exts), COUNT_MAX)
+        return count >= self.min_obs, int(np.bitwise_or.reduce(exts)), count
+
+
+class CountFilterSet(KmerSummarizer):
+    """data = sorted distinct payload tuple (filter.rs:68-101)."""
+
+    def __init__(self, min_obs: int):
+        self.min_obs = min_obs
+
+    def summarize(self, kmer, exts, payloads):
+        return len(exts) >= self.min_obs, int(np.bitwise_or.reduce(exts)), tuple(sorted(set(payloads)))
+
+
+class CountFilterEqClass(KmerSummarizer):
+    """data = eq-class id of the payload set, numbered in first-appearance
+    order; ``self.eq_classes`` maps payload tuple -> id."""
+
+    def __init__(self, min_obs: int):
+        self.min_obs = min_obs
+        self.eq_classes: dict = {}
+
+    def summarize(self, kmer, exts, payloads):
+        key = tuple(sorted(set(payloads)))
+        eq_id = self.eq_classes.setdefault(key, len(self.eq_classes))
+        return len(exts) >= self.min_obs, int(np.bitwise_or.reduce(exts)), eq_id
+
+
+def filter_kmers_with_summarizer(seqs, k: int, summarizer: KmerSummarizer, *,
+                                 stranded: bool = False, report_all: bool = False, device="cuda"):
+    """filter_kmers with any summarizer (filter.rs:139): ``seqs`` items are
+    ``(bases, seq_exts, payload)`` with any payload object.
+
+    The card extracts, canonicalizes and sorts the observations, each
+    carrying its read's index; the host walks the runs of equal kmers and
+    calls ``summarizer.summarize`` once a kmer.  Returns (KmerTable on
+    ``device``, each kept kmer's summary object); the table's data is the
+    summary where it is an int, else 0, and ``report_all`` fills
+    ``all_kmers`` with every distinct kmer.
+    """
+    spec = KmerSpec(k)
+    device = torch.device(device)
+    items = [s for s in seqs if len(s[0]) >= k]
+    if not items:
+        return _empty_table(spec, stranded, device), []
+    payloads = [s[2] for s in items]
+    batch = _read_batch(spec, items, device, labels=np.arange(len(items), dtype=np.int32))
+    kmers, exts, labs, starts, ends = _sorted_obs(spec, stranded, *batch)
+    out_k, out_e, out_d, out_c = [], [], [], []
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        ok, fexts, data = summarizer.summarize(kmers[s], exts[s:e], [payloads[j] for j in labs[s:e]])
+        if ok:
+            out_k.append(s)
+            out_e.append(fexts)
+            out_d.append(data)
+            out_c.append(min(e - s, COUNT_MAX))
+    col = lambda a: torch.from_numpy(np.array(a, np.int32)).to(device)
+    table = KmerTable(
+        spec=spec,
         stranded=stranded,
-        min_obs=min_obs,
-        data_reduce=data_reduce,
-        report_all=report_all,
+        kmers=KM.to_torch(kmers[out_k].reshape(-1, spec.w), device),
+        exts=col(out_e),
+        counts=col(out_c),
+        data=col([d if isinstance(d, (int, np.integer)) else 0 for d in out_d]),
+        all_kmers=KM.to_torch(kmers[starts], device) if report_all else None,
     )
+    return table, out_d
+
+
+# ---------------------------------------------------------------------------
+# neighbor searches: censored extensions
+# ---------------------------------------------------------------------------
+
+
+def neighbor_bits(spec: KmerSpec, stranded: bool, kmers: torch.Tensor, *tables) -> list:
+    """For every kmer, which of its 8 (direction, base) neighbors are rows of
+    each sorted unique table of ``tables``: one (n,) int32 mask a table, bit
+    ``b + 4 d`` set iff the neighbor by base b in direction d, canonical
+    unless stranded, is a row.  The 8n candidates are canonicalized by one
+    canonical launch and found by one search a table."""
+    n = kmers.shape[0]
+    dev = kmers.device
+    cands = torch.cat([(KM.extend_left if d == 0 else KM.extend_right)(spec, kmers, b)
+                       for d in (0, 1) for b in range(4)])
+    if not stranded:
+        cands = _canonicalize(spec, cands, torch.zeros(8 * n, dtype=torch.int32, device=dev))[0]
+    shifts = torch.arange(8, dtype=torch.int32, device=dev)[:, None]
+    return [(S.searchsorted_limbs(t, cands)[1].reshape(8, n).to(torch.int32) << shifts).sum(0,
+            dtype=torch.int32) for t in tables]
+
+
+def remove_censored_exts_device(spec: KmerSpec, stranded: bool, kmers: torch.Tensor,
+                                exts: torch.Tensor, all_kmers=None) -> torch.Tensor:
+    """Drop the extensions that point at censored kmers (filter.rs:238-306).
+
+    Without ``all_kmers``: keep only the extensions onto kmers of the table.
+    With it (the sharded form): drop an extension only where its target is
+    in the census ``all_kmers`` but not in the table."""
+    if all_kmers is None:
+        (found,) = neighbor_bits(spec, stranded, kmers, kmers)
+        return exts & found
+    found, census = neighbor_bits(spec, stranded, kmers, kmers, all_kmers)
+    return exts & (found | ~census)
+
+
+def remove_censored_exts(table: KmerTable, device="cuda") -> None:
+    """Global censored-ext repair (filter.rs:280-306) on ``device``: keep
+    only the extensions onto kmers of the table.  Sets ``table.exts``."""
+    _remove_censored(table, None, device)
+
+
+def remove_censored_exts_sharded(table: KmerTable, device="cuda") -> None:
+    """Sharded repair (filter.rs:238-276) on ``device``: drop the extensions
+    whose target is in the table's census but not in the table; keep
+    targets the census does not know.  The table needs ``all_kmers``
+    (``report_all=True``).  Sets ``table.exts``."""
+    if table.all_kmers is None:
+        raise ValueError("table has no census; build with report_all=True")
+    _remove_censored(table, table.all_kmers.to(device), device)
+
+
+def _remove_censored(table: KmerTable, all_kmers, device) -> None:
+    if len(table):
+        new = remove_censored_exts_device(table.spec, table.stranded, table.kmers.to(device),
+                                          table.exts.to(device), all_kmers)
+        table.exts = new.to(table.exts.device)
 
 
 # ---------------------------------------------------------------------------
@@ -362,18 +713,21 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def count_bytes_per_read(spec: KmerSpec, read_len: int) -> int:
+def count_bytes_per_read(spec: KmerSpec, read_len: int, colored: bool = False) -> int:
     """Device bytes that one read of ``read_len`` bases holds at the peak
-    of :func:`count_kmers`, its sort: per slot the compacted packed row, its
-    int64 limbs, the packed sort keys, the sort's output keys, permutation
-    and scratch (one key and one index per pass), and 16 bytes for the
-    per-run columns of a chunk whose kmers are all distinct; plus the read's
-    bases.  An H100 measured up to 75, 82 and 130 bytes a slot at W = 1, 2
-    and 4 against 80, 88 and 144 here (PERF.md §6); ``chip_smoke.py``
-    holds ``count_kmers`` and a streaming run under ``memory_gb=1`` to it."""
+    of :func:`count_kmers` (``colored``: :func:`count_kmer_pairs`, whose sort
+    key has the label as one more limb), its sort: per slot the compacted
+    packed row, its int64 key limbs, the packed sort keys, the sort's output
+    keys, permutation and scratch (one key and one index per pass), and 16
+    bytes for the per-run columns of a chunk whose kmers are all distinct;
+    plus the read's bases.  An H100 measured up to 75, 82 and 130 bytes a
+    slot at W = 1, 2 and 4 against 80, 88 and 144 here (PERF.md §6);
+    ``chip_smoke.py`` holds both counts and a streaming run under
+    ``memory_gb=1`` to it."""
     width = _round_up(max(_round_up(read_len, 32), spec.k), 16)
-    n_keys = (spec.w + 1) // 2
-    per_slot = 4 * obs_row_words(spec.w) + 8 * spec.w + 8 * n_keys + 16 * (n_keys + 1) + 16
+    limbs = spec.w + colored
+    n_keys = (limbs + 1) // 2
+    per_slot = 4 * obs_row_words(spec.w) + 8 * limbs + 8 * n_keys + 16 * (n_keys + 1) + 16
     return (width - spec.k + 1) * per_slot + width
 
 
@@ -531,7 +885,8 @@ def filter_kmers_streaming(
     spec = KmerSpec(k)
     device = torch.device(device)
     if memory_gb is not None and read_len_cap is not None:
-        chunk_reads = max(256, int(memory_gb * 1e9 / count_bytes_per_read(spec, read_len_cap)))
+        chunk_reads = max(256, int(memory_gb * 1e9 / count_bytes_per_read(spec, read_len_cap,
+                                                                          colored)))
     if colored and merge != "device":
         raise ValueError("colored=True requires merge='device'")
     if merge == "device" and data_reduce != "none":
@@ -557,9 +912,7 @@ def filter_kmers_streaming(
         lengths, seq_exts, labels = (torch.from_numpy(a).to(device) for a in (lengths, seq_exts, labels))
         if merge == "device":
             if colored:
-                km, lab, ex, cn = count_kmer_pairs(spec, bases, lengths, seq_exts, labels,
-                                                   stranded=stranded)
-                keys = torch.cat([km, (lab.to(torch.int64) & M32)[:, None]], dim=1)
+                keys, ex, cn = _pair_keys(spec, bases, lengths, seq_exts, labels, stranded=stranded)
             else:
                 t = count_kmers(spec, bases, lengths, seq_exts, labels, stranded=stranded,
                                 min_obs=1, data_reduce="none", report_all=False)

@@ -2,15 +2,16 @@
 
 Counterpart of the slice of ``tpu_debruijn/graph.py`` that the README
 quick start runs (rust-debruijn's graph.rs).  ``BaseGraph`` is the unitig
-store; ``DebruijnGraph`` adds the sorted end-kmer indexes, and resolves
-every candidate link of the graph (graph.rs:223-291) in one batched search
-on the device.
+store, with an optional sidecar of per-node payload objects (``rich``);
+``DebruijnGraph`` adds the sorted end-kmer indexes, and resolves every
+candidate link of the graph (graph.rs:223-291) in one batched search on the
+device.
 """
 
 from __future__ import annotations
 
 import io as _io
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +38,23 @@ class BaseGraph:
         self._data = np.zeros(0, np.int32)
         self._exts_chunks: List[np.ndarray] = []
         self._data_chunks: List[np.ndarray] = []
+        # one payload object a node beside the int32 data, once any node
+        # has one: BaseGraph<K, D>'s data (graph.rs:44-50)
+        self._rich: Optional[List] = None
+
+    @property
+    def rich(self) -> Optional[List]:
+        """Per-node payload objects, aligned with the nodes, or None."""
+        return self._rich
+
+    def _rich_extend(self, n_before: int, rich, n_new: int) -> None:
+        """Append ``rich``, a list of ``n_new`` payloads (None: as many
+        Nones), once any node has a payload."""
+        if rich is None and self._rich is None:
+            return
+        if self._rich is None:
+            self._rich = [None] * n_before
+        self._rich.extend([None] * n_new if rich is None else rich)
 
     def _consolidate(self) -> None:
         if self._exts_chunks:
@@ -58,19 +76,26 @@ class BaseGraph:
     def __len__(self):
         return len(self.sequences)
 
-    def add(self, bases, exts: int, data: int = 0) -> None:
+    def add(self, bases, exts: int, data: int = 0, rich=None) -> None:
+        n_before = len(self)
         self.sequences.add(np.asarray(bases, np.uint8))
         self._exts_chunks.append(np.array([exts], np.int32))
         self._data_chunks.append(np.array([data], np.int32))
+        self._rich_extend(n_before, None if rich is None else [rich], 1)
 
-    def add_flat(self, seq_flat, lengths, exts, data=None) -> None:
-        """Bulk-append many unitigs: concatenated bases + per-node arrays."""
+    def add_flat(self, seq_flat, lengths, exts, data=None, rich=None) -> None:
+        """Bulk-append many unitigs: concatenated bases + per-node arrays,
+        and optionally a list of per-node payload objects."""
+        n_before = len(self)
         lengths = np.asarray(lengths, np.int64)
+        if rich is not None and len(rich) != len(lengths):
+            raise ValueError("rich sidecar length != node count")
         self.sequences.add_flat(seq_flat, lengths)
         self._exts_chunks.append(np.asarray(exts, np.int32))
         self._data_chunks.append(
             np.zeros(len(lengths), np.int32) if data is None else np.asarray(data, np.int32)
         )
+        self._rich_extend(n_before, rich, len(lengths))
 
     @staticmethod
     def combine(graphs: Sequence["BaseGraph"]) -> "BaseGraph":
@@ -83,7 +108,7 @@ class BaseGraph:
             raise ValueError("attempted to combine stranded and unstranded graphs")
         out = BaseGraph(graphs[0].spec.k, graphs[0].stranded)
         for g in graphs:
-            out.add_flat(g.sequences._flat(), g.sequences.length, g.exts, g.data)
+            out.add_flat(g.sequences._flat(), g.sequences.length, g.exts, g.data, rich=g.rich)
         return out
 
     def finish(self, device="cuda") -> "DebruijnGraph":
@@ -93,10 +118,23 @@ class BaseGraph:
 
 
 def from_compress_output(k: int, stranded: bool, nodes) -> BaseGraph:
-    """Wrap compress.compress_kmers output [(bases, exts, data)]."""
+    """Wrap compress.compress_kmers output [(bases, exts, data)]; data that
+    is not an int (compress_kmers_rich's payloads) goes to the ``rich``
+    sidecar, with data 0."""
     g = BaseGraph(k, stranded)
     for seq, exts, data in nodes:
-        g.add(seq, exts, int(data))
+        if isinstance(data, (int, np.integer)):
+            g.add(seq, exts, int(data))
+        else:
+            g.add(seq, exts, 0, rich=data)
+    return g
+
+
+def from_flat_output(k: int, stranded: bool, seq_flat, lengths, exts, data=None) -> BaseGraph:
+    """Wrap flat unitig buffers (compress.assemble_unitigs_flat,
+    compress.compress_kmers_flat_device): the bulk path."""
+    g = BaseGraph(k, stranded)
+    g.add_flat(seq_flat, lengths, exts, data)
     return g
 
 
@@ -164,6 +202,7 @@ class DebruijnGraph:
             self.last_kmers = np.zeros((0, w), np.uint32)
         self.exts = np.asarray(base.exts, np.int32)
         self.data = np.asarray(base.data, np.int32)
+        self.rich = base.rich
         order_l = self._sort_ids(self.first_kmers)
         order_r = self._sort_ids(self.last_kmers)
         self._lk_sorted = self.first_kmers[order_l]

@@ -207,6 +207,15 @@ def get_base(spec: KmerSpec, a: torch.Tensor, pos: int) -> torch.Tensor:
     return (a[..., il] >> (shift % 32)) & 3
 
 
+def get_base_dyn(spec: KmerSpec, a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Base at a position tensor ``pos`` (0 = leftmost) of the shape of
+    ``a[..., 0]``; :func:`get_base` for a position that varies by row."""
+    shift = spec.nbits - 2 - 2 * pos.to(torch.int64)
+    il = spec.w - 1 - shift // 32
+    limb = torch.take_along_dim(a, il[..., None], dim=-1)[..., 0]
+    return (limb >> (shift % 32)) & 3
+
+
 def first_base(spec: KmerSpec, a: torch.Tensor) -> torch.Tensor:
     return get_base(spec, a, 0)
 
