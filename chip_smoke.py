@@ -97,6 +97,23 @@ Phases; any failure raises and the script exits non-zero:
    color-set compressions ("colored").  On 20,000 of phase 5's reads with
    four labels, compress_kmers_rich and the three summarizers are held
    against the array forms.
+9. The MSP-sharded path at full width: phase 3's reads through
+   parallel.assemble_sharded (k = 31, p = 8, min_obs = 2) on 8 logical
+   shards of the card.  Checks: the union of the shard tables equals phase
+   3's table (kmers and counts bit for bit, no kmer in two shards, exts but
+   for extensions a shard dropped onto kmers censored in its own census),
+   the device stitch and the host stitch (compress_graph) give the same
+   node rows, the unitigs equal phase 3's as canonical sequences, the
+   balancing permutation (inverse_frequency_score_table of 20,000 reads)
+   leaves the graph unchanged; the same on phase 5's reads at min_obs = 1
+   (tables exact), where clean_tips leaves a graph compress_graph does not
+   change.  Launches are counted over one assemble_sharded call
+   ("sharded"); prints the intervals a shard with and without the
+   permutation, the seconds of each stage (scan, exchange, per-shard counts
+   and compressions, each stitch, pad_reads apart), the peak device memory
+   beside phase 3's, and the card's busy time under torch.profiler.
+   Phase 6 also holds the sharded path CUDA == CPU (sharded_outputs: both
+   stitches, compress_graph, clean_tips; GFA bytes).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -979,6 +996,12 @@ def phase_device_vs_cpu(rng, tmp) -> None:
         f"{len(got['cpu']['set_arrays'][0])} kmers, {len(got['cpu']['color_sets join=False'][0])} "
         f"unitigs, {len(got['cpu']['gfa'])} GFA bytes")
 
+    got = {dev: sharded_outputs([r for r, _, _ in reads], K, dev, tmp) for dev in ("cuda", "cpu")}
+    for name, want in got["cpu"].items():
+        check(got["cuda"][name] == want, f"sharded path: CUDA and CPU {name} differ")
+    log("phase 6: the sharded path CUDA == CPU, GFA bytes: "
+        + json.dumps({name: len(b) for name, b in got["cpu"].items()}))
+
 
 def flat_of(nodes):
     """A unitig list as from_flat_output's flat buffers."""
@@ -1529,6 +1552,220 @@ def colored_small(rich_reads, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MSP-sharded path
+# ---------------------------------------------------------------------------
+
+P_MSP = 8  # the README's minimizer length
+N_SHARDS = 8
+PERM_SAMPLE = 20_000  # reads the balancing score table is drawn from
+
+
+def gfa_of(graph, path: str) -> bytes:
+    graph.to_gfa(path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def node_rows(graph) -> list:
+    """A graph's nodes as sorted (canonical sequence bytes, exts of that
+    orientation, data) rows: what test_collective_stitch_equals_host_path
+    compares."""
+    from tpu_debruijn_torch import exts as E
+
+    seqs = graph.base.sequences
+    flat, starts, lens = seqs._flat(), seqs.start, seqs.length
+    out = []
+    for i in range(len(graph)):
+        b = flat[starts[i] : starts[i] + lens[i]]
+        fwd, rev, e = b.tobytes(), (3 - b[::-1]).astype(np.uint8).tobytes(), int(graph.exts[i])
+        out.append((rev, E.rc(e), int(graph.data[i])) if rev < fwd else (fwd, e, int(graph.data[i])))
+    return sorted(out)
+
+
+def ordered_rows(graph) -> list:
+    return [(graph.base.sequences.get_bases(i).tobytes(), int(graph.exts[i]), int(graph.data[i]))
+            for i in range(len(graph))]
+
+
+def canon_seqs(nodes) -> list:
+    """Unitigs [(bases, exts, data)] as sorted canonical sequence bytes."""
+    return sorted(min(s.tobytes(), (3 - s[::-1]).astype(np.uint8).tobytes()) for s, _, _ in nodes)
+
+
+def check_shard_tables(what: str, tables, want: dict) -> int:
+    """The union of the shard tables against one-batch ``want`` (numpy, from
+    table_to_numpy): kmers and counts bit for bit, so no kmer lies in two
+    shards; exts bit for bit but where a shard dropped an extension onto a
+    kmer censored in its own census (min_obs > 1), and then a subset of the
+    one-batch exts.  Returns the kmers whose exts differ."""
+    from tpu_debruijn_torch import kmer as KM
+    from tpu_debruijn_torch import sorting as S
+
+    km = torch.cat([t.kmers for t in tables])
+    order = S.lex_argsort(km)
+    km = km[order]
+    ex = torch.cat([t.exts for t in tables])[order].cpu().numpy()
+    cn = torch.cat([t.counts for t in tables])[order].cpu().numpy()
+    check(km.shape[0] == len(want["kmers"]), f"{what}: the shards hold {km.shape[0]} kmers, "
+          f"the one-batch table {len(want['kmers'])}")
+    check(np.array_equal(KM.to_numpy(km), want["kmers"]) and np.array_equal(cn, want["counts"]),
+          f"{what}: the union of the shard tables != the one-batch table")
+    check(not (ex & ~want["exts"]).any(), f"{what}: a shard table has an extension the "
+          "one-batch table lacks")
+    return int((ex != want["exts"]).sum())
+
+
+def stage_summary(stats: dict) -> dict:
+    """Seconds by stage (sum and max over the shards for the per-shard
+    ones) and the intervals a shard."""
+    out = {}
+    for key, v in stats.items():
+        if key == "intervals":
+            out["intervals"] = {"total": sum(v), "max": max(v), "mean": sum(v) / len(v),
+                                "by_shard": v}
+        elif len(v) > 1:
+            out[key] = {"sum": sum(v), "max": max(v)}
+        else:
+            out[key] = v[0]
+    return out
+
+
+def sharded_outputs(reads, k: int, dev, tmp: str) -> dict:
+    """The sharded path's entry points on ``dev`` for ``reads`` at ``k``
+    (p = 8, 8 shards, min_obs = 2), as GFA bytes: assemble_sharded with both
+    stitches, compress_graph of the combined shard graphs with three nodes
+    censored, and clean_tips.  Phase 6 and the card tests hold the CUDA
+    bytes to the CPU ones."""
+    from tpu_debruijn_torch import clean as CL
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import graph as G
+    from tpu_debruijn_torch import parallel as TP
+
+    mesh = TP.make_mesh(N_SHARDS, device=dev)
+    path = os.path.join(tmp, f"sharded_{torch.device(dev).type}.gfa")
+    out, graphs = {}, {}
+    for coll in (True, False):
+        graphs[coll] = TP.assemble_sharded(reads, k, P_MSP, min_obs=2, mesh=mesh, collective=coll,
+                                           device=dev)
+        out[f"assemble_sharded collective={coll}"] = gfa_of(graphs[coll], path)
+    _, tables, chains, u_exts, contrib = TP.sharded_tables(reads, k, P_MSP, min_obs=2, mesh=mesh,
+                                                           device=dev)
+    combined = G.BaseGraph(k, False)
+    for table, ch, ue, cb in zip(tables, chains, u_exts, contrib):
+        if ch.n_unitigs:
+            seq, lengths = C.assemble_unitigs_device(table.spec, table.kmers, ch, cb)
+            combined.add_flat(seq.cpu().numpy(), lengths.cpu().numpy(), ue.cpu().numpy())
+    out["compress_graph"] = gfa_of(G.compress_graph(combined.finish(device=dev),
+                                                    censor_nodes=[0, 2, 5], device=dev), path)
+    out["clean_tips"] = gfa_of(CL.clean_tips(graphs[True], lambda n: n.len() < 2 * k, device=dev),
+                               path)
+    return out
+
+
+def rich_sharded(rich_reads, mesh, device) -> dict:
+    """Phase 9 on phase 5's repeat-rich reads at min_obs = 1: shard tables
+    == the one-batch table, collective == host stitch, unitigs == the
+    one-batch unitigs; then clean_tips leaves a compressed graph."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import clean as CL
+    from tpu_debruijn_torch import graph as G
+    from tpu_debruijn_torch import parallel as TP
+    from tpu_debruijn_torch import table_to_numpy
+
+    kw = dict(stranded=False, min_obs=1, mesh=mesh, device=device)
+    table = T.filter_kmers([(r, 0, 0) for r in rich_reads], K, min_obs=1, device=device)
+    nodes = T.compress_kmers(table, device=device)
+    stats = {}
+    _, tables, *_ = TP.sharded_tables(rich_reads, K, P_MSP, stats=stats, **kw)
+    differ = check_shard_tables("phase 9 repeat-rich", tables, table_to_numpy(table))
+    check(differ == 0, "phase 9 repeat-rich: exts differ at min_obs = 1")
+    del tables
+    t0 = time.perf_counter()
+    graph = TP.assemble_sharded(rich_reads, K, P_MSP, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rows = node_rows(graph)
+    check(rows == node_rows(TP.assemble_sharded(rich_reads, K, P_MSP, collective=False, **kw)),
+          "phase 9 repeat-rich: the collective and host stitches differ")
+    check([r[0] for r in rows] == canon_seqs(nodes),
+          "phase 9 repeat-rich: sharded unitigs != one-batch unitigs")
+    n_before = len(graph)
+    cleaned = CL.clean_tips(graph, lambda n: n.len() < 2 * K, device=device)
+    check(ordered_rows(G.compress_graph(cleaned, device=device)) == ordered_rows(cleaned),
+          "phase 9 repeat-rich: clean_tips left a graph that compresses further")
+    return {"reads": len(rich_reads), "table_kmers": len(table), "unitigs": len(nodes),
+            "intervals": stage_summary(stats)["intervals"], "assemble_sharded_s": secs,
+            "nodes_after_clean_tips": len(cleaned), "nodes_before": n_before}
+
+
+def phase_sharded(reads, table_main: dict, nodes_main, peak_main: int, rich_reads, counters,
+                  smi: str, device="cuda") -> dict:
+    """Phase 9: the MSP-sharded path at full width, phase 3's reads over 8
+    logical shards (k = 31, p = 8, min_obs = 2); launches counted over one
+    assemble_sharded call with the device stitch (path "sharded")."""
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import msp as TM
+    from tpu_debruijn_torch import parallel as TP
+
+    t_phase = time.perf_counter()
+    mesh = TP.make_mesh(N_SHARDS, device=device)
+    kw = dict(stranded=False, min_obs=2, mesh=mesh, device=device)
+
+    def timed(fn, stats=None):
+        t0 = time.perf_counter()
+        out = fn(stats)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    graph, total_s = timed(lambda st: TP.assemble_sharded(reads, K, P_MSP, stats=st, **kw), stats)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+    peak = torch.cuda.max_memory_allocated()
+    out = {"reads": len(reads), "k": K, "p": P_MSP, "shards": N_SHARDS, "min_obs": 2,
+           "nodes": len(graph), "assemble_sharded_s": total_s, "stages": stage_summary(stats),
+           "peak_device_bytes": peak, "peak_device_bytes_quick_start": peak_main}
+    rows = node_rows(graph)
+    check([r[0] for r in rows] == canon_seqs(nodes_main), "phase 9: sharded unitigs != phase 3's")
+    stats_h = {}
+    host, out["assemble_sharded_host_stitch_s"] = timed(
+        lambda st: TP.assemble_sharded(reads, K, P_MSP, collective=False, stats=st, **kw), stats_h)
+    out["stages_host_stitch"] = stage_summary(stats_h)
+    check(node_rows(host) == rows, "phase 9: the collective and host stitches differ")
+    del host
+    (_, tables, *_), out["sharded_tables_s"] = timed(
+        lambda st: TP.sharded_tables(reads, K, P_MSP, **kw))
+    out["exts_differ_from_one_batch"] = check_shard_tables("phase 9", tables, table_main)
+    del tables
+    log("phase 9: shard tables == phase 3's table, collective == host stitch, unitigs == "
+        f"phase 3's; {json.dumps(out)}")
+    out["assemble_sharded_device"] = profile_device_ms(
+        lambda: TP.assemble_sharded(reads, K, P_MSP, **kw), top=8)
+
+    sample, sample_len = F.pad_reads(reads[:PERM_SAMPLE], min_len=K, pad_to=16)
+    perm = TM.inverse_frequency_score_table(P_MSP, sample, sample_len)
+    stats_p = {}
+    g_perm, out["assemble_sharded_permutation_s"] = timed(
+        lambda st: TP.assemble_sharded(reads, K, P_MSP, permutation=perm, stats=st, **kw), stats_p)
+    out["intervals_permutation"] = stage_summary(stats_p)["intervals"]
+    check(node_rows(g_perm) == rows, "phase 9: the permutation changed the graph")
+    del g_perm, graph
+    torch.cuda.empty_cache()
+
+    out["repeat_rich"] = rich_sharded(rich_reads, mesh, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"phase 9 (sharded path, {smi}): " + json.dumps({k: v for k, v in out.items()
+                                                        if k != "launches"}))
+    return out
+
+
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
@@ -1697,15 +1934,19 @@ def main(argv=None) -> int:
         corpus = phase_corpus(os.path.join(tmp, "ecoli.fq"), reads, table_main, nodes_main,
                               rich_reads, counters, "cuda")
         by_path["corpus"] = corpus.pop("launches")
-        del reads, nodes_main
         log("phase 7 (corpus path): " + json.dumps({"device": smi, **corpus}))
 
         # phase 8: the colored path at full width
         colored = phase_colored(rng, genome, rich_reads, counters, smi)
         by_path["colored"] = colored.pop("launches")
         assembly["phase 8"] = colored.pop("assembly")
-        del rich_reads
         log("host vs device assembly: " + json.dumps({"device": smi, **assembly}))
+
+        # phase 9: the MSP-sharded path at full width
+        sharded = phase_sharded(reads, table_main, nodes_main, main["peak_device_bytes"],
+                                rich_reads, counters, smi)
+        by_path["sharded"] = sharded.pop("launches")
+        del reads, nodes_main, rich_reads
 
         for path, launches in by_path.items():
             for name in on_path:

@@ -444,3 +444,46 @@ def test_policy_entry_points_cuda_match_cpu(cuda, k, tmp_path):
     differ = [name for name, want in got["cpu"].items()
               if not chip_smoke.same_outputs(got["cuda"][name], want)]
     assert not differ, differ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 31, 63])
+def test_sharded_path_cuda_matches_cpu(cuda, k, tmp_path):
+    """The sharded path on the card equals its CPU run (chip_smoke.py's phase
+    6 harness): assemble_sharded with both stitches, compress_graph of the
+    combined shard graphs with censored nodes, and clean_tips, as GFA bytes."""
+    import chip_smoke
+
+    reads = [r for r, _, _ in _labeled(k)]
+    got = {dev: chip_smoke.sharded_outputs(reads, k, dev, str(tmp_path)) for dev in ("cuda", "cpu")}
+    assert len(got["cpu"]["assemble_sharded collective=True"]) > 100
+    differ = [name for name, want in got["cpu"].items() if got["cuda"][name] != want]
+    assert not differ, differ
+
+
+@pytest.mark.cuda
+def test_compress_graph_cuda_matches_cpu(cuda, tmp_path):
+    """compress_graph on the card equals the CPU's under a named and a
+    closure reduce, the data join and censored nodes."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import graph as TG
+
+    reads = _labeled(31)
+    nodes = T.compress_kmers(T.filter_kmers(reads, 31, min_obs=2, device="cpu"), device="cpu")
+    # each unitig cut in two at its middle kmer: nodes that compress_graph joins again
+    cut = TG.BaseGraph(31, False)
+    for seq, exts, data in nodes:
+        h = len(seq) // 2
+        if h < 31:
+            cut.add(seq, exts, data)
+            continue
+        cut.add(seq[:h], (exts & 0x0F) | (1 << (4 + int(seq[h]))), data)
+        cut.add(seq[h - 30 :], (exts & 0xF0) | (1 << int(seq[h - 31])), data + 1)
+    for kw in (dict(), dict(data_reduce="max"), dict(data_reduce=lambda a, b: a + 2 * b),
+               dict(join_on_data=True), dict(censor_nodes=[1, 4])):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            g = TG.compress_graph(TG.BaseGraph.combine([cut]).finish(device=dev), device=dev, **kw)
+            g.to_gfa(str(tmp_path / f"{dev}.gfa"))
+            out[dev] = ((tmp_path / f"{dev}.gfa").read_bytes(), g.data.tolist())
+        assert out["cuda"] == out["cpu"], kw

@@ -92,13 +92,15 @@ def test_port_never_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'tpu_debruijn_torch.kernels.pointer_jump' in names, names\n"
-        "from tpu_debruijn_torch import compress, filter, graph\n"
+        "from tpu_debruijn_torch import clean, compress, filter, graph, msp, parallel\n"
         "for mod, attrs in ((tpu_debruijn_torch, 'CompressionSpec SimpleCompress ScmapCompress "
         "compress_kmers_color_sets compress_kmers_rich compress_kmers_no_exts'), (compress, "
         "'assemble_unitigs_device compress_kmers_flat_device infer_exts_device'), (filter, "
         "'filter_kmers_set filter_kmers_set_arrays filter_kmers_eq_classes assign_eq_classes eq_class_ids "
         "CountFilterEqClass filter_kmers_with_summarizer remove_censored_exts_sharded'), "
-        "(graph, 'from_flat_output')):\n"
+        "(graph, 'from_flat_output compress_graph Node'), (parallel, 'sharded_tables "
+        "assemble_sharded make_mesh ShardPlan'), (msp, 'msp_intervals_device'), (clean, 'clean_tips'), "
+        "(compress, 'stitch_flat')):\n"
         "    missing = [a for a in attrs.split() if not hasattr(mod, a)]\n"
         "    assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_debruijn') or m.startswith(('jax.', 'tpu_debruijn.')))\n"

@@ -23,6 +23,13 @@ the read-ordered chain linking,
         -> compress.compress_kmer_table_device(first_pos=table.data)
         -> compress.assemble_chains
 
+the MSP-sharded assembly on logical shards of one device,
+
+    parallel.assemble_sharded(reads, k, p, mesh=parallel.make_mesh(8))
+        (msp.msp_intervals_device -> exchange -> per-shard count and
+         compress -> device stitch, or graph.compress_graph on the host)
+    clean.clean_tips -> graph.compress_graph
+
 and the colored path and the policy layer,
 
     filter.filter_kmers_set_arrays -> compress_kmers_color_sets
@@ -42,16 +49,20 @@ its colored pairs; label sets, eq classes, summarizers, censored
 extensions), ``compress`` (every policy; ``link_chains`` and
 ``link_chains_ordered``; unitig assembly on the host or on the device),
 ``dna`` (``PackedSeqSet``), ``graph`` (``BaseGraph`` with its ``rich``
-sidecar, link table, GFA export), ``convert`` and the kernels in
+sidecar, link table, ``Node``, ``fix_exts``, ``compress_graph``, GFA
+export), ``msp`` (the minimizer scan and its host API), ``parallel``
+(``make_mesh``, ``ShardPlan``, ``sharded_tables``, ``assemble_sharded``),
+``clean`` (tips), ``convert`` (tables and graphs) and the kernels in
 ``kernels/``: the two kmer kernels, the gathers and pointer jumps that
 replace the Pallas gather probes, among them the doubling loop of chain
 linking in one launch, and the ruling-set list ranking.
 
 Not ported yet: ``KmerTable``'s ``get``/``get_key_id``/``to_tuples``/
-``save``/``load``, the batched ``read_fastx``, ``msp``, ``parallel``, the
-rest of ``graph`` (``stitch_flat``, ``compress_graph``, walks, save/load
-with the ``rich`` sidecar) and ``clean``/``neighbors``/``dna``, and the
-``dna``/``kmer``/``exts`` helpers the paths above do not run.
+``save``/``load``, the batched ``read_fastx``, ``parallel.multihost``
+(several processes), the rest of ``graph`` (``is_compressed``, walks,
+dot/JSON export, save/load with the ``rich`` sidecar, ``Node.sequence``),
+``neighbors`` and ``dna``'s ``DnaSeq``, and the ``dna``/``kmer``/``exts``
+helpers the paths above do not run.
 """
 
 from tpu_debruijn_torch.compress import (
@@ -63,9 +74,9 @@ from tpu_debruijn_torch.compress import (
     compress_kmers_no_exts,
     compress_kmers_rich,
 )
-from tpu_debruijn_torch.convert import table_from_reference, table_to_numpy
+from tpu_debruijn_torch.convert import graph_from_reference, table_from_reference, table_to_numpy
 from tpu_debruijn_torch.filter import KmerTable, PackedReadBlock, filter_kmers, filter_kmers_streaming
-from tpu_debruijn_torch.graph import BaseGraph, DebruijnGraph, from_compress_output
+from tpu_debruijn_torch.graph import BaseGraph, DebruijnGraph, Node, compress_graph, from_compress_output
 from tpu_debruijn_torch.io import read_fasta, read_fastq, read_fastx, stream_fastx_blocks
 from tpu_debruijn_torch.kmer import KmerSpec
 
@@ -75,9 +86,11 @@ __all__ = [
     "DebruijnGraph",
     "KmerSpec",
     "KmerTable",
+    "Node",
     "PackedReadBlock",
     "ScmapCompress",
     "SimpleCompress",
+    "compress_graph",
     "compress_kmers",
     "compress_kmers_color_sets",
     "compress_kmers_no_exts",
@@ -85,6 +98,7 @@ __all__ = [
     "filter_kmers",
     "filter_kmers_streaming",
     "from_compress_output",
+    "graph_from_reference",
     "read_fasta",
     "read_fastq",
     "read_fastx",

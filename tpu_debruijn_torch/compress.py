@@ -26,7 +26,8 @@ Unitig sequences are assembled from the chain labels on the device
 (:func:`assemble_unitigs_device`: only the bases and the per-unitig arrays
 cross to the host) under every policy; :func:`assemble_unitigs` assembles
 them on the host from chain labels pulled there (the read-ordered path's
-:func:`assemble_chains`).
+:func:`assemble_chains`).  :func:`stitch_flat` joins node sequences along
+node-level chains on the host (``graph.compress_graph``, the shard stitch).
 
 The policy layer (compression.rs:34-98): :class:`CompressionSpec` and its
 two shipped forms fold per-kmer data along unitigs with a named reduction
@@ -274,18 +275,23 @@ def _emit_chains(n, node, orient, dist, mnmo, end_id, is_start, node_of_end) -> 
     )
 
 
-def link_chains(partner_l, partner_r, in_l, in_r) -> Chains:
+def link_chains(partner_l, partner_r, in_l, in_r, valid=None) -> Chains:
     """Label each item with (unitig id, position, orientation).
 
     Precondition: partner edges are mutual and entry-side consistent, as
     :func:`resolve_edges` leaves them; chain starts then follow from
-    ``partner < 0`` alone.
+    ``partner < 0`` alone.  ``valid`` ((n,) bool, optional) masks items out:
+    they belong to no unitig (uid -1) and no partner may point at them (the
+    censored nodes of ``graph.compress_graph``).
     """
     n = partner_l.shape[0]
     dev = partner_l.device
     node = torch.arange(n, device=dev).repeat_interleave(2)
     orient = torch.arange(2, device=dev).repeat(n)
     succ0 = _succ_states(partner_l, partner_r, in_l, in_r)
+    live = None if valid is None else valid.repeat_interleave(2)
+    if live is not None:
+        succ0 = torch.where(live, succ0, -1)
     # packed (min node, orient): node ids are unique within a chain, so the
     # packed min is the min node with its orientation
     mnmo0 = (node << 1) | orient
@@ -295,8 +301,13 @@ def link_chains(partner_l, partner_r, in_l, in_r) -> Chains:
     # a state has no predecessor iff its entry-side partner is absent:
     # (i, 0) is entered via stored L, (i, 1) via stored R
     no_pred = torch.stack([partner_l < 0, partner_r < 0], dim=1).reshape(2 * n)
-    return _emit_chains(n, node, orient, dist, mnmo, end_id, no_pred | extra_starts,
-                        node_of_end=lambda e: e >> 1)
+    is_start = no_pred | extra_starts
+    if live is None:
+        return _emit_chains(n, node, orient, dist, mnmo, end_id, is_start,
+                            node_of_end=lambda e: e >> 1)
+    ch = _emit_chains(n, node, orient, dist, mnmo, end_id, is_start & live,
+                      node_of_end=lambda e: e >> 1)
+    return dataclasses.replace(ch, uid=torch.where(valid, ch.uid, -1))
 
 
 def discovery_intervals(partner_l, partner_r, first_pos):
@@ -901,3 +912,40 @@ def compress_kmers_no_exts(k: int, kmers, data=None, *, stranded: bool = False,
                         torch.ones(n, dtype=torch.int32, device=device), data)
     return compress_kmers(table, data_reduce=data_reduce, join_on_data=join_on_data,
                           data_field="data", spec=spec, device=device)
+
+
+def stitch_flat(k: int, src_flat: np.ndarray, src_starts: np.ndarray, src_lens: np.ndarray,
+                node_ids: np.ndarray, uid: np.ndarray, pos: np.ndarray, flip: np.ndarray,
+                nutg: int):
+    """Concatenate oriented node sequences per unitig, dropping K - 1
+    overlaps (build_node at node granularity, compression.rs:291-334), in
+    numpy on the host: every output base is mapped to its source base in
+    one gather.
+
+    ``src_flat``/``src_starts``/``src_lens`` hold the node sequences;
+    ``node_ids`` the (m,) nodes taking part, with their chain labels
+    ``uid``/``pos``/``flip``; uid values are 0..nutg - 1.  Returns
+    (out_flat uint8, out_lengths int64).
+    """
+    if nutg == 0:
+        return np.zeros(0, np.uint8), np.zeros(0, np.int64)
+    order = np.lexsort((pos, uid))
+    nid = node_ids[order]
+    uid_s, pos_s = uid[order], pos[order]
+    flip_s = flip[order].astype(bool)
+    src_start_n = src_starts[nid].astype(np.int64)
+    src_len_n = src_lens[nid].astype(np.int64)
+    skip = np.where(pos_s > 0, k - 1, 0).astype(np.int64)
+    contrib = src_len_n - skip
+    # sorted by uid, so the output layout is the running sum
+    cum_excl = np.zeros(len(contrib), np.int64)
+    np.cumsum(contrib[:-1], out=cum_excl[1:])
+    total = int(contrib.sum())
+    out_lengths = np.bincount(uid_s, weights=contrib, minlength=nutg).astype(np.int64)
+    rep = np.repeat(np.arange(len(nid)), contrib)  # the node of each output base
+    within = np.arange(total, dtype=np.int64) - np.repeat(cum_excl, contrib)
+    fwd = src_start_n[rep] + skip[rep] + within
+    rev = src_start_n[rep] + src_len_n[rep] - 1 - skip[rep] - within
+    flip_rep = flip_s[rep]
+    vals = src_flat[np.where(flip_rep, rev, fwd)]
+    return np.where(flip_rep, 3 - vals, vals).astype(np.uint8), out_lengths

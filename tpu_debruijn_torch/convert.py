@@ -1,8 +1,9 @@
-"""Move a kmer table between the JAX package and the port.
+"""Move a kmer table or a graph between the JAX package and the port.
 
 This system has no weights: the state the two packages share is the kmer
-table.  The JAX package's ``KmerTable`` holds numpy arrays (uint32 limbs,
-int32 columns); the port's holds int64 limb and int32 tensors on a device.
+table and the graph.  The JAX package's ``KmerTable`` holds numpy arrays
+(uint32 limbs, int32 columns); the port's holds int64 limb and int32
+tensors on a device.  Both packages' graphs keep numpy on the host.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch.filter import KmerTable
+from tpu_debruijn_torch.graph import BaseGraph
 from tpu_debruijn_torch.kmer import KmerSpec
 
 
@@ -41,4 +43,16 @@ def table_to_numpy(table: KmerTable) -> dict:
     }
     if table.all_kmers is not None:
         out["all_kmers"] = KM.to_numpy(table.all_kmers)
+    return out
+
+
+def graph_from_reference(graph) -> BaseGraph:
+    """A JAX ``BaseGraph`` or ``DebruijnGraph`` -> the port's ``BaseGraph``
+    from its numpy arrays: flat bases, lengths, exts, data and the ``rich``
+    sidecar (copied as a list).  Call ``.finish(device=...)`` on it."""
+    base = getattr(graph, "base", graph)
+    seqs = base.sequences
+    out = BaseGraph(base.spec.k, base.stranded)
+    out.add_flat(seqs._flat(), seqs.length, base.exts, base.data,
+                 rich=None if base.rich is None else list(base.rich))
     return out

@@ -1,26 +1,35 @@
-"""Compressed De Bruijn graph: unitig store, link table, GFA export.
+"""Compressed De Bruijn graph: unitig store, link table, re-compression.
 
-Counterpart of the slice of ``tpu_debruijn/graph.py`` that the README
-quick start runs (rust-debruijn's graph.rs).  ``BaseGraph`` is the unitig
+Counterpart of ``tpu_debruijn/graph.py`` (rust-debruijn's graph.rs) for the
+quick start, the shard merge and tip cleaning.  ``BaseGraph`` is the unitig
 store, with an optional sidecar of per-node payload objects (``rich``);
-``DebruijnGraph`` adds the sorted end-kmer indexes, and resolves every
+``DebruijnGraph`` adds the sorted end-kmer indexes, resolves every
 candidate link of the graph (graph.rs:223-291) in one batched search on the
-device.
+device, walks edges (``Node``, ``find_edges``) and repairs extensions
+(``fix_exts``).  :func:`compress_graph` merges unbranched nodes
+(compression.rs:291-349) with the kmer-level machinery: node partners by
+searches on the device, then ``compress.link_chains`` (``rank_lists``).
+
+Not ported yet: walks and exports beyond GFA (``max_path``,
+``sequence_of_path``, dot/JSON), save/load, ``Node.sequence`` and
+``iter_kmers`` (they wait for ``dna.DnaSeq``).
 """
 
 from __future__ import annotations
 
 import io as _io
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tpu_debruijn_torch import bases as B
+from tpu_debruijn_torch import compress as C
 from tpu_debruijn_torch import exts as E
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.dna import PackedSeqSet
+from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kmer import KmerSpec
 
 LEFT, RIGHT = E.LEFT, E.RIGHT
@@ -67,6 +76,11 @@ class BaseGraph:
     def exts(self) -> np.ndarray:
         self._consolidate()
         return self._exts
+
+    @exts.setter
+    def exts(self, value) -> None:
+        self._consolidate()
+        self._exts = np.asarray(value, np.int32)
 
     @property
     def data(self) -> np.ndarray:
@@ -180,6 +194,41 @@ def _link_and_edges(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids, first_
     )
 
 
+def sorted_ends(kmers: torch.Tensor):
+    """The find_link index of (n, W) end kmers on their device: (sorted
+    limbs, node ids), the node ids stably sorted by kmer."""
+    ids = S.lex_argsort(kmers)
+    return gather_rows(kmers, ids), ids
+
+
+def _exts_of(mask: torch.Tensor) -> torch.Tensor:
+    """(n, 2, 4) bool (node, dir, base) -> (n,) int32 Exts bytes."""
+    bits = torch.arange(8, dtype=torch.int32, device=mask.device)
+    return (mask.reshape(-1, 8).to(torch.int32) << bits).sum(1, dtype=torch.int32)
+
+
+def _ext_bits(exts: torch.Tensor) -> torch.Tensor:
+    """(n,) Exts bytes -> (n, 2, 4) bool: bit b + 4 d is (dir d, base b)."""
+    bits = torch.arange(8, dtype=exts.dtype, device=exts.device).reshape(2, 4)
+    return ((exts[:, None, None] >> bits) & 1).bool()
+
+
+def _fix_exts_device(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids, first_k, last_k,
+                     exts, valid=None):
+    """Device fix_exts (graph.rs:337-377): keep only the extensions whose
+    target kmer is an end kmer of a node, of a ``valid`` one when given;
+    invalid nodes get 0.  The node tables are unpadded, so JAX's
+    ``n_valid`` bound is gone."""
+    if first_k.shape[0] == 0:
+        return exts
+    t, _, _, found = _link_and_edges(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids,
+                                     first_k, last_k)
+    keep = _ext_bits(exts) & found
+    if valid is None:
+        return _exts_of(keep)
+    return torch.where(valid, _exts_of(keep & valid[t]), 0)
+
+
 class DebruijnGraph:
     """Walkable compressed graph: BaseGraph + sorted end-kmer indexes."""
 
@@ -209,6 +258,7 @@ class DebruijnGraph:
         self._lk_ids = order_l
         self._rk_sorted = self.last_kmers[order_r]
         self._rk_ids = order_r
+        self._links = None  # where each extension lands: independent of exts
         self._edges = None
 
     @staticmethod
@@ -220,29 +270,67 @@ class DebruijnGraph:
     def __len__(self):
         return len(self.base)
 
+    def get_node(self, node_id: int) -> "Node":
+        return Node(node_id, self)
+
+    def iter_nodes(self):
+        for i in range(len(self)):
+            yield Node(i, self)
+
     def _edge_table(self):
         """(target, in_side, flip, exists) per (node, dir, base), as numpy;
-        ``exists`` also requires the node's extension bit."""
+        ``exists`` also requires the node's extension bit.  Where each
+        extension lands is searched on the device once; the extension bits
+        are applied again whenever ``exts`` changes."""
         if self._edges is None:
-            if len(self) == 0:
-                z = np.zeros((0, 2, 4), np.int64)
-                self._edges = (z, z, z.astype(bool), z.astype(bool))
-                return self._edges
-            dev = self.device
-            ids = lambda a: torch.from_numpy(a).to(dev)
-            t, s, f, found = _link_and_edges(
-                self.spec, self.stranded,
-                KM.to_torch(self._lk_sorted, dev), ids(self._lk_ids),
-                KM.to_torch(self._rk_sorted, dev), ids(self._rk_ids),
-                KM.to_torch(self.first_kmers, dev), KM.to_torch(self.last_kmers, dev),
-            )
-            t, s, f, found = (x.cpu().numpy() for x in (t, s, f, found))
-            has = np.zeros_like(found)
-            for d in (LEFT, RIGHT):
-                for b in range(4):
-                    has[:, d, b] = (self.exts >> (b + 4 * d)) & 1
+            if self._links is None:
+                if len(self) == 0:
+                    z = np.zeros((0, 2, 4), np.int64)
+                    self._links = (z, z, z.astype(bool), z.astype(bool))
+                else:
+                    dev = self.device
+                    ids = lambda a: torch.from_numpy(a).to(dev)
+                    links = _link_and_edges(
+                        self.spec, self.stranded,
+                        KM.to_torch(self._lk_sorted, dev), ids(self._lk_ids),
+                        KM.to_torch(self._rk_sorted, dev), ids(self._rk_ids),
+                        KM.to_torch(self.first_kmers, dev), KM.to_torch(self.last_kmers, dev),
+                    )
+                    self._links = tuple(x.cpu().numpy() for x in links)
+            t, s, f, found = self._links
+            has = ((self.exts[:, None, None] >> np.arange(8).reshape(2, 4)) & 1).astype(bool)
             self._edges = (t, s, f, found & has)
         return self._edges
+
+    def find_edges(self, node_id: int, d: int) -> List[tuple]:
+        """The edges leaving ``node_id`` in direction ``d`` (graph.rs:223-241)
+        as (target, side entered, flipped); an extension to no node (out of
+        the shard) is skipped."""
+        t, s, f, ex = self._edge_table()
+        return [(int(t[node_id, d, b]), int(s[node_id, d, b]), bool(f[node_id, d, b]))
+                for b in range(4) if ex[node_id, d, b]]
+
+    def get_valid_exts(self, node_id: int, valid: Optional[np.ndarray]) -> int:
+        """The node's Exts byte keeping only edges onto ``valid`` nodes
+        (graph.rs:344-377)."""
+        t, _, _, ex = self._edge_table()
+        new = 0
+        for d in (LEFT, RIGHT):
+            for b in range(4):
+                if ex[node_id, d, b] and (valid is None or valid[int(t[node_id, d, b])]):
+                    new = E.set_ext(new, d, b)
+        return new
+
+    def fix_exts(self, valid: Optional[np.ndarray] = None) -> None:
+        """Drop the extensions with no target, or no ``valid`` target
+        (graph.rs:337-342); sets ``exts`` here and in the base graph."""
+        t, _, _, ex = self._edge_table()
+        keep = ex if valid is None else ex & np.asarray(valid, bool)[t]
+        new = (keep.reshape(-1, 8).astype(np.int32) << np.arange(8, dtype=np.int32)).sum(
+            1, dtype=np.int32)
+        self.exts = new
+        self.base.exts = new
+        self._edges = None
 
     def to_gfa(self, path) -> None:
         """GFA export, byte-identical to the JAX package's."""
@@ -273,3 +361,140 @@ class DebruijnGraph:
                         buf.write(b"L\t%d\t+\t%d\t%s\t%sM\n" % (i, tgt, d, k1))
         with open(path, "wb") as fh:
             fh.write(buf.getvalue())
+
+
+class Node:
+    """View of one node (graph.rs:1009-1093).  ``exts()`` is the Exts byte
+    as an int; ``sequence()`` and ``iter_kmers()`` wait for ``dna.DnaSeq``."""
+
+    def __init__(self, node_id: int, graph: DebruijnGraph):
+        self.node_id = node_id
+        self.graph = graph
+
+    def len(self) -> int:
+        return int(self.graph.base.sequences.length[self.node_id])
+
+    def data(self) -> int:
+        return int(self.graph.data[self.node_id])
+
+    def exts(self) -> int:
+        return int(self.graph.exts[self.node_id])
+
+    def l_edges(self):
+        return self.graph.find_edges(self.node_id, LEFT)
+
+    def r_edges(self):
+        return self.graph.find_edges(self.node_id, RIGHT)
+
+    def edges(self, d: int):
+        return self.graph.find_edges(self.node_id, d)
+
+    def __repr__(self):
+        return (f"Node {{ id:{self.node_id}, Exts: {self.exts():#04x}, "
+                f"L:{self.l_edges()} R:{self.r_edges()}, Seq: {self.len()} }}")
+
+
+# ---------------------------------------------------------------------------
+# node-level re-compression (compression.rs:100-349)
+# ---------------------------------------------------------------------------
+
+
+def _node_partner_body(spec, stranded, use_join, lk_sorted, lk_ids, rk_sorted, rk_ids,
+                       first_k, last_k, exts, node_len, valid, labels):
+    """try_extend_node (compression.rs:115-205) as vector masks over the
+    nodes, then chain linking: (chains, unitig exts).  ``valid`` masks
+    censored nodes; with ``use_join`` only nodes of equal ``labels`` join."""
+    n = first_k.shape[0]
+    dev = first_k.device
+    idx_self = torch.arange(n, device=dev)
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
+    pal_self = no if stranded else (node_len == spec.k) & KM.is_palindrome(spec, first_k)
+    partners, ins = {}, {}
+    for d in (LEFT, RIGHT):
+        uniq, base = E.unique_extension(exts, d)
+        ext = KM.extend_left if d == LEFT else KM.extend_right
+        cand = ext(spec, first_k if d == LEFT else last_k, base.to(torch.int64))
+        pal_next = no if stranded else KM.is_palindrome(spec, cand)
+        j, side, _, found = _find_link_device(spec, stranded, d, cand, lk_sorted, lk_ids,
+                                              rk_sorted, rk_ids)
+        jc = j.clamp(0, n - 1)
+        ok = (valid & uniq & found & valid[jc] & (j != idx_self) & ~pal_self & ~pal_next
+              & (E.num_ext_dir(gather_rows(exts, jc), side) == 1))
+        if use_join:
+            ok &= labels == gather_rows(labels, jc)
+        partners[d] = torch.where(ok, j, -1)
+        ins[d] = side.to(torch.int64)
+    edges = C._enforce_mutual(partners, ins)
+    chains = C.link_chains(edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"],
+                           valid)
+    return chains, C.unitig_end_exts(exts, chains)
+
+
+def _union_or_first(a, b):
+    """compress_graph's default ``rich_reduce``: the sorted set union of two
+    int sequences; otherwise the first payload."""
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        return tuple(sorted(set(a) | set(b)))
+    return a
+
+
+def compress_graph(graph: DebruijnGraph, censor_nodes: Optional[Sequence[int]] = None, *,
+                   data_reduce="sum_sat_u16", join_on_data: bool = False,
+                   spec: Optional[C.CompressionSpec] = None,
+                   rich_reduce: Optional[Callable] = None, device="cuda") -> DebruijnGraph:
+    """Merge adjacent unbranched nodes, after censoring ``censor_nodes``
+    (compress_graph, compression.rs:291-349): fix_exts against the valid
+    nodes, link the nodes into chains on ``device``, stitch their sequences
+    (dropping K - 1 overlaps), rebuild, and fix_exts again.
+
+    The policy comes from ``spec`` (a :class:`~tpu_debruijn_torch.compress.CompressionSpec`)
+    or the ``data_reduce``/``join_on_data`` knobs.  A ``rich`` sidecar folds
+    by ``rich_reduce`` (associative, commutative, returning a new object);
+    by default int sequences merge as sorted set unions and any other
+    payload keeps the first.  Sets ``graph``'s exts, as JAX does.
+    """
+    n = len(graph)
+    valid = np.ones(n, bool)
+    if censor_nodes is not None:
+        valid[np.asarray(list(censor_nodes), int)] = False
+    graph.fix_exts(valid)
+    k = graph.spec.k
+    if n == 0:
+        return BaseGraph(k, graph.stranded).finish(device=device)
+    labels = graph.data
+    if spec is not None:
+        data_reduce = spec.reduce
+        la = spec.label_array(graph.data)
+        join_on_data = la is not None
+        if join_on_data:
+            labels = la
+    dev = torch.device(device)
+    col = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(dev)
+    chains, u_exts = _node_partner_body(
+        graph.spec, graph.stranded, join_on_data,
+        KM.to_torch(graph._lk_sorted, dev), col(graph._lk_ids, np.int64),
+        KM.to_torch(graph._rk_sorted, dev), col(graph._rk_ids, np.int64),
+        KM.to_torch(graph.first_kmers, dev), KM.to_torch(graph.last_kmers, dev),
+        col(graph.exts, np.int32), col(graph.base.sequences.length, np.int64),
+        col(valid, bool), col(labels, np.int32),
+    )
+    uid, pos, flip = (x.cpu().numpy() for x in (chains.uid, chains.pos, chains.flip))
+    nutg = chains.n_unitigs
+    live = uid >= 0
+    lids = np.nonzero(live)[0]
+    uid, pos, flip = uid[live], pos[live], flip[live]
+    if callable(data_reduce):
+        data_red = C._fold_closure(data_reduce, graph.data[lids], uid, pos, nutg)
+    else:
+        data_red = C._reduce_np(data_reduce, graph.data[lids], uid, nutg)
+    seqs = graph.base.sequences
+    seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length, lids, uid,
+                                          pos, flip, nutg)
+    rich_out = None
+    if graph.rich is not None:
+        rich_out = C._fold_objects(rich_reduce or _union_or_first, graph.rich, lids, uid, pos, nutg)
+    out = BaseGraph(k, graph.stranded)
+    out.add_flat(seq_flat, out_lengths, u_exts.cpu().numpy(), data_red, rich=rich_out)
+    dbg = out.finish(device=device)
+    dbg.fix_exts(None)
+    return dbg

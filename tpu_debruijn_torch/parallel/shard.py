@@ -1,0 +1,375 @@
+"""MSP-sharded assembly on a logical shard mesh.
+
+Counterpart of ``tpu_debruijn/parallel/shard.py``, the reference's sharded
+workflow (test.rs:418-504): msp_sequence per read -> bucket -> a count and
+compression per bucket -> BaseGraph::combine -> compress_graph.
+
+1. **Scan** (:func:`_scan_source`): each source block of ceil(R / n) reads
+   (JAX's row block per device) is split into MSP intervals; an interval
+   goes to shard ``bucket mod n``, taken on the int32 view of the bucket,
+   as JAX takes it.
+2. **Exchange** (:func:`exchange`, JAX's ``all_to_all``): one stable
+   partition of every interval by destination, so a shard's intervals
+   arrive in source order and then interval order.
+3. **Count and compress** each shard in turn (:func:`_shard_step`): the
+   count, with ``min_obs > 1`` the censored-extension repair against the
+   shard's own census (cross-shard unknowns survive), and the kmer-level
+   compression.
+4. **Stitch**: on the device (:func:`_global_stitch_device`: the shards'
+   unitig ends gathered by :func:`gather_ends`, JAX's ``all_gather``;
+   fix_exts against every node, node-level partners and ``link_chains``,
+   and the closing fix_exts), or on the host through
+   ``graph.compress_graph`` (``collective=False``).
+
+The JAX package sizes static buffers for ``shard_map``; none of that is
+ported: no ``cap_per_dest`` or ``slack`` (accepted and unused), no padded
+exchange buffers and no overflow, no padded rows, and per-shard lists in
+place of padded per-shard stacks with their ``n_valid``/``n_unitigs``
+masks.  With ``data_reduce="obs_min"`` a shard's slot index runs over its
+own unpadded (n_intervals, 2k - p) batch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tpu_debruijn_torch import compress as C
+from tpu_debruijn_torch import filter as F
+from tpu_debruijn_torch import kmer as KM
+from tpu_debruijn_torch import msp as M
+from tpu_debruijn_torch.graph import (
+    BaseGraph,
+    _fix_exts_device,
+    _node_partner_body,
+    compress_graph,
+    sorted_ends,
+)
+from tpu_debruijn_torch.kernels.gather import gather_rows
+from tpu_debruijn_torch.kmer import KmerSpec
+from tpu_debruijn_torch.parallel.mesh import LogicalMesh, make_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """The parameters of one sharded run.  ``cap_per_dest`` sizes JAX's
+    exchange buffers; it is kept for the signature and unused."""
+
+    k: int
+    p: int
+    stranded: bool
+    min_obs: int
+    n_shards: int
+    cap_per_dest: Optional[int] = None
+
+    @property
+    def spec(self) -> KmerSpec:
+        return KmerSpec(self.k)
+
+    @property
+    def interval_len(self) -> int:
+        return 2 * self.k - self.p  # msp.rs:292 bound
+
+
+class _Stages:
+    """Host seconds by stage into ``stats`` (a dict; None times nothing).
+    A timed stage starts and ends with a device synchronize."""
+
+    def __init__(self, stats: Optional[dict], device: torch.device):
+        self.stats = stats
+        self.sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
+            else (lambda: None)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.stats is None:
+            yield
+            return
+        self.sync()
+        t0 = time.perf_counter()
+        yield
+        self.sync()
+        self.stats.setdefault(name + "_s", []).append(time.perf_counter() - t0)
+
+
+def source_blocks(n_reads: int, n_shards: int) -> List[tuple]:
+    """(lo, hi) of each shard's source block: contiguous rows, ceil(R / n)
+    a block, as JAX splits a batch padded to a multiple of n."""
+    b = -(-n_reads // n_shards)
+    return [(s * b, min((s + 1) * b, n_reads)) for s in range(n_shards)]
+
+
+def _dest(bucket: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The shard of each bucket: the floor mod of its int32 view, JAX's
+    ``bucket % n_shards`` on the int32 lanes it keeps buckets in.  At
+    p = 16 a bucket may be 2^31 or more, and the view differs."""
+    return torch.where(bucket >= 2**31, bucket - 2**32, bucket) % n_shards
+
+
+def _scan_source(plan: ShardPlan, bases, lengths, labels, permutation):
+    """MSP scan of one source block: (interval bases (n, 2k - p) uint8,
+    lengths, exts, labels, destinations)."""
+    iv = M.msp_intervals_device(plan.k, plan.p, bases, lengths, permutation,
+                                rc=not plan.stranded)
+    sub = M.gather_interval_bases(plan.k, plan.p, bases, iv)
+    return (sub, iv["length"], iv["exts"], labels[iv["read"].to(torch.int64)],
+            _dest(iv["bucket"], plan.n_shards))
+
+
+def exchange(dest: torch.Tensor, n_shards: int, columns: Sequence[torch.Tensor]) -> list:
+    """The exchange (JAX's ``all_to_all``): rows of ``columns`` by
+    destination shard, by one stable partition over the batch in read
+    order.  Returns one list of columns a shard."""
+    order = torch.argsort(dest, stable=True)
+    counts = torch.bincount(dest, minlength=n_shards).tolist()
+    moved = [torch.split(c[order], counts) for c in columns]
+    return [[m[s] for m in moved] for s in range(n_shards)]
+
+
+def gather_ends(parts: Sequence[tuple]) -> tuple:
+    """The stitch's gather (JAX's ``all_gather``): each shard's unitig end
+    columns, concatenated in shard order."""
+    return tuple(torch.cat(cols) for cols in zip(*parts))
+
+
+def dest_histogram(k: int, p: int, n_shards: int, bases, lengths, *, stranded: bool = False,
+                   permutation=None, device="cuda") -> np.ndarray:
+    """(n_shards, n_shards) interval counts of a padded read batch by source
+    block (row) and destination shard (column): the shard balance."""
+    plan = ShardPlan(k, p, stranded, 1, n_shards)
+    bases = F.as_tensor(bases, torch.uint8, device)
+    lengths = F.as_tensor(lengths, torch.int32, device)
+    perm = None if permutation is None else F.as_tensor(permutation, torch.int32, device)
+    labels = torch.zeros(bases.shape[0], dtype=torch.int32, device=bases.device)
+    hist = np.zeros((n_shards, n_shards), np.int64)
+    for s, (lo, hi) in enumerate(source_blocks(bases.shape[0], n_shards)):
+        if hi > lo:
+            dest = _scan_source(plan, bases[lo:hi], lengths[lo:hi], labels[lo:hi], perm)[-1]
+            hist[s] = torch.bincount(dest, minlength=n_shards).cpu().numpy()
+    return hist
+
+
+def _empty_chains(device) -> C.Chains:
+    z = torch.zeros(0, dtype=torch.int64, device=device)
+    return C.Chains(uid=z, pos=z, flip=z.bool(), n_unitigs=0, length=z, first_item=z,
+                    last_item=z, first_flip=z, last_flip=z)
+
+
+def _shard_step(plan: ShardPlan, sub, slen, sexts, slab, data_reduce, stages: _Stages):
+    """One shard's count (with ``min_obs > 1``, the repair of extensions onto
+    kmers censored in this shard's own census) and compression: (table,
+    chains, unitig exts, contributed bases).  A shard with no interval or no
+    kept kmer gives an empty table and no chain."""
+    spec, dev = plan.spec, sub.device
+    report_all = plan.min_obs > 1
+    with stages("count"):
+        if sub.shape[0] == 0:
+            table = F._empty_table(spec, plan.stranded, dev, report_all)
+        else:
+            table = F.count_kmers(spec, sub, slen, sexts, slab, stranded=plan.stranded,
+                                  min_obs=plan.min_obs, data_reduce=data_reduce,
+                                  report_all=report_all)
+    with stages("compress"):
+        if len(table) == 0:
+            z = torch.zeros(0, dtype=torch.int64, device=dev)
+            return table, _empty_chains(dev), z.to(torch.int32), z
+        if report_all:
+            table.exts = F.remove_censored_exts_device(spec, plan.stranded, table.kmers,
+                                                       table.exts, table.all_kmers)
+        chains, u_exts, contrib = C.compress_kmer_table_device(spec, plan.stranded, table.kmers,
+                                                               table.exts)
+    return table, chains, u_exts, contrib
+
+
+def _oriented(spec: KmerSpec, kmers, flip) -> torch.Tensor:
+    return torch.where(flip.bool()[:, None], KM.rc(spec, kmers), kmers)
+
+
+def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts):
+    """The boundary stitch on the device, over every shard's unitigs: (node
+    chains, final unitig exts).  Global node ids are the shard's offset plus
+    the local unitig index (JAX's ``shard * cap + slot`` without the
+    padding); chain ids follow the least node id, so the final graph comes
+    out node for node as JAX's.
+
+    1. fix_exts against the global node set: cross-shard extensions resolve
+       onto another shard's unitig end, or drop;
+    2. node-level partners and ``link_chains`` (try_extend_node rules);
+    3. fix_exts of the final unitigs (compress_graph's closing fix_exts,
+       compression.rs:332).
+    """
+    spec, stranded = plan.spec, plan.stranded
+    parts = []
+    for table, ch, ue in zip(tables, chains, u_exts):
+        parts.append((_oriented(spec, gather_rows(table.kmers, ch.first_item), ch.first_flip),
+                      _oriented(spec, gather_rows(table.kmers, ch.last_item), ch.last_flip),
+                      ue, ch.length))
+    g_fk, g_lk, g_exts, g_len = gather_ends(parts)
+    m = g_fk.shape[0]
+    dev = g_fk.device
+    if m == 0:
+        return _empty_chains(dev), g_exts
+    lk_idx, rk_idx = sorted_ends(g_fk), sorted_ends(g_lk)
+    fixed = _fix_exts_device(spec, stranded, *lk_idx, *rk_idx, g_fk, g_lk, g_exts)
+    gchains, gu_exts = _node_partner_body(
+        spec, stranded, False, *lk_idx, *rk_idx, g_fk, g_lk, fixed, g_len + spec.k - 1,
+        torch.ones(m, dtype=torch.bool, device=dev), torch.zeros(m, dtype=torch.int32, device=dev))
+    fi, li = gchains.first_item, gchains.last_item
+    final_fk = torch.where(gchains.first_flip.bool()[:, None], KM.rc(spec, gather_rows(g_lk, fi)),
+                           gather_rows(g_fk, fi))
+    final_lk = torch.where(gchains.last_flip.bool()[:, None], KM.rc(spec, gather_rows(g_fk, li)),
+                           gather_rows(g_lk, li))
+    final_exts = _fix_exts_device(spec, stranded, *sorted_ends(final_fk), *sorted_ends(final_lk),
+                                  final_fk, final_lk, gu_exts)
+    return gchains, final_exts
+
+
+def _mesh(mesh: Optional[LogicalMesh], device) -> LogicalMesh:
+    if mesh is None:
+        return make_mesh(device=device)
+    if mesh.device != torch.device(device):
+        raise ValueError(f"the mesh lies on {mesh.device}, not on {device}")
+    return mesh
+
+
+def sharded_tables(
+    reads: Sequence[np.ndarray],
+    k: int,
+    p: int,
+    *,
+    stranded: bool = False,
+    min_obs: int = 1,
+    mesh: Optional[LogicalMesh] = None,
+    labels: Optional[np.ndarray] = None,
+    slack: Optional[float] = None,
+    cap_per_dest: Optional[int] = None,
+    data_reduce: str = "label_first",
+    stitch: bool = False,
+    permutation=None,
+    device="cuda",
+    stats: Optional[dict] = None,
+):
+    """The sharded scan, exchange, count and compression on ``device``.
+
+    ``mesh`` (default ``make_mesh(8, device)``) gives the shard count and
+    must lie on ``device``.  ``labels`` label the reads of length >= k, in
+    order.  ``permutation``: an optional (4^p,) minimizer score table
+    (``msp.inverse_frequency_score_table``), the reference's
+    load-balancing permutation (msp.rs:57-59, :298-311).  ``slack`` and
+    ``cap_per_dest`` size JAX's exchange buffers and are unused: nothing
+    overflows here.
+
+    Returns (plan, tables, chains, u_exts, contrib), each after the plan a
+    list with one entry a shard; with ``stitch`` also the device stitch's
+    node chains and final unitig exts.  ``stats``, a dict, receives the
+    seconds of each stage (``pad_reads_s``, ``msp_s``, ``exchange_s``,
+    ``count_s`` and ``compress_s`` a shard, ``stitch_s``) and the intervals
+    a shard (``intervals``).
+    """
+    mesh = _mesh(mesh, device)
+    dev, n_shards = mesh.device, mesh.n_shards
+    stages = _Stages(stats, dev)
+    items = [np.asarray(s, np.uint8) for s in reads if len(s) >= k]
+    if not items:
+        raise ValueError("no reads of length >= k")
+    with stages("pad_reads"):
+        bases, lengths = F.pad_reads(items, min_len=k, pad_to=16)
+    labels = np.zeros(len(items), np.int32) if labels is None else labels
+    plan = ShardPlan(k, p, stranded, min_obs, n_shards, cap_per_dest)
+    bases, lengths = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
+    labels = F.as_tensor(labels, torch.int32, dev)
+    perm = None if permutation is None else F.as_tensor(permutation, torch.int32, dev)
+    with stages("msp"):
+        scanned = [_scan_source(plan, bases[lo:hi], lengths[lo:hi], labels[lo:hi], perm)
+                   for lo, hi in source_blocks(bases.shape[0], n_shards) if hi > lo]
+    del bases, lengths
+    with stages("exchange"):
+        cols = [torch.cat(c) for c in zip(*scanned)]
+        del scanned
+        shards = exchange(cols[-1], n_shards, cols[:-1])
+        del cols
+    if stats is not None:
+        stats["intervals"] = [sh[0].shape[0] for sh in shards]
+    tables, chains, u_exts, contrib = [], [], [], []
+    for s in range(n_shards):
+        out = _shard_step(plan, *shards[s], data_reduce, stages)
+        shards[s] = None  # a shard's intervals are done with once counted
+        for lst, x in zip((tables, chains, u_exts, contrib), out):
+            lst.append(x)
+    if not stitch:
+        return plan, tables, chains, u_exts, contrib
+    with stages("stitch"):
+        gchains, final_exts = _global_stitch_device(plan, tables, chains, u_exts)
+    return plan, tables, chains, u_exts, contrib, gchains, final_exts
+
+
+def assemble_sharded(
+    reads: Sequence[np.ndarray],
+    k: int,
+    p: int,
+    *,
+    stranded: bool = False,
+    min_obs: int = 1,
+    mesh: Optional[LogicalMesh] = None,
+    labels: Optional[np.ndarray] = None,
+    slack: Optional[float] = None,
+    cap_per_dest: Optional[int] = None,
+    data_reduce_compress="sum_sat_u16",
+    collective: bool = True,
+    permutation=None,
+    device="cuda",
+    stats: Optional[dict] = None,
+):
+    """The whole sharded assembly (test.rs:418-504) in one call: reads ->
+    sharded count and compression -> boundary stitch -> the final
+    ``DebruijnGraph`` (links on ``device``).  It equals the unsharded
+    assembly of the same reads, the reference's N-shard == 1-shard oracle.
+
+    Each shard's unitigs assemble on the device; unitig data is the shard's
+    counts folded by ``data_reduce_compress``.  With ``collective`` (the
+    default) the stitch runs on the device and the host only stitches the
+    node sequences by the returned chain labels (``compress.stitch_flat``);
+    ``collective=False`` combines the shard graphs and re-compresses them
+    with ``graph.compress_graph``.  Both give the same graph.  ``stats``:
+    see :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
+    unitigs, combined) and ``final_s`` (the host side of the stitch and the
+    final graph).
+    """
+    mesh = _mesh(mesh, device)
+    dev = mesh.device
+    stages = _Stages(stats, dev)
+    out = sharded_tables(reads, k, p, stranded=stranded, min_obs=min_obs, mesh=mesh,
+                         labels=labels, slack=slack, cap_per_dest=cap_per_dest,
+                         stitch=collective, permutation=permutation, device=device, stats=stats)
+    plan, tables, chains, u_exts, contrib = out[:5]
+    spec = plan.spec
+    with stages("assemble"):
+        combined = BaseGraph(k, stranded)
+        for table, ch, ue, cb in zip(tables, chains, u_exts, contrib):
+            if ch.n_unitigs:
+                seq, out_len = C.assemble_unitigs_device(spec, table.kmers, ch, cb)
+                data = C._fold_data(data_reduce_compress, table.counts, ch)
+                combined.add_flat(seq.cpu().numpy(), out_len.cpu().numpy(),
+                                  ue.cpu().numpy(), data)
+    with stages("final"):
+        if not collective:
+            return compress_graph(combined.finish(device=dev), data_reduce=data_reduce_compress,
+                                  device=dev)
+        gchains, final_exts = out[5], out[6]
+        g_uid, g_pos, g_flip = (x.cpu().numpy() for x in (gchains.uid, gchains.pos, gchains.flip))
+        g_n = gchains.n_unitigs
+        seqs = combined.sequences
+        seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length,
+                                              np.arange(len(combined)), g_uid, g_pos, g_flip, g_n)
+        if callable(data_reduce_compress):
+            data_red = C._fold_closure(data_reduce_compress, combined.data, g_uid, g_pos, g_n)
+        else:
+            data_red = C._reduce_np(data_reduce_compress, combined.data, g_uid, g_n)
+        final = BaseGraph(k, stranded)
+        final.add_flat(seq_flat, out_lengths, final_exts.cpu().numpy(), data_red)
+        return final.finish(device=dev)
