@@ -114,6 +114,28 @@ Phases; any failure raises and the script exits non-zero:
    beside phase 3's, and the card's busy time under torch.profiler.
    Phase 6 also holds the sharded path CUDA == CPU (sharded_outputs: both
    stitches, compress_graph, clean_tips; GFA bytes).
+10. The command line and the graph API at full size: phase 8's 1,856,664
+   reads written to a FASTQ file and assembled by assemble.run (python -m
+   tpu_debruijn_torch.assemble; k = 31, min_obs = 2, unstranded, with
+   --json), launches counted over that run ("cli"); its GFA must equal
+   filter_kmers -> compress_kmers -> from_compress_output -> to_gfa on the
+   reads in memory, its JSON parse to one node a unitig.  On its graph:
+   max_path and max_path_beam(4) with the counts as scores (node ids
+   unique, each step an edge of find_edges, every kmer of the path's
+   sequence a table kmer; seconds, nodes, bases and the Hamming distance
+   to the base genome's stretch); is_compressed (a pair only through an
+   extension onto a kmer min_obs dropped, none after compress_graph; on a
+   one-node-per-kmer graph of phase 5's table a pair, and compress_graph
+   gives phase 5's unitigs); write_gfa == to_gfa, to_json == the CLI's
+   file, to_dot and to_gfa_with_tags timed; save/load of the graph (GFA
+   bytes), of compress_kmers_rich's graph with int-tuple and pickled
+   sidecars, and of the 5.2M-kmer table (bit for bit, back on the card);
+   get_key_id / get / get_key of 10,000 table kmers, at_count + gc_count ==
+   K and hamming_dist(a, a) == 0 on every kmer, hamming_neighbors in
+   chunks (3K candidates a kmer, one_hamming_iter's order on 1,000) and
+   the count of table kmers with an HD-1 neighbour in the table.  Phase 6
+   also holds the command line CUDA == CPU (cli_outputs: GFA and JSON
+   bytes, both walks, both checkpoints' arrays).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -130,6 +152,7 @@ on two checkouts in turns to compare them on one card.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -1002,6 +1025,13 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     log("phase 6: the sharded path CUDA == CPU, GFA bytes: "
         + json.dumps({name: len(b) for name, b in got["cpu"].items()}))
 
+    got = {dev: cli_outputs(fq, dev, tmp) for dev in ("cuda", "cpu")}
+    check(same_files(got["cuda"], got["cpu"]),
+          "the CLI, its walks or its checkpoints: CUDA and CPU differ")
+    log(f"phase 6: the CLI CUDA == CPU: {len(got['cpu']['gfa'])} GFA and {len(got['cpu']['json'])} "
+        f"JSON bytes, walks of {len(got['cpu']['max_path'])} and {len(got['cpu']['max_path_beam'])} "
+        f"nodes, both checkpoints")
+
 
 def flat_of(nodes):
     """A unitig list as from_flat_output's flat buffers."""
@@ -1394,19 +1424,26 @@ def popcount8(x: torch.Tensor) -> int:
     return int(sum(((x >> b) & 1).sum() for b in range(8)))
 
 
-def phase_colored(rng, genome, rich_reads, counters, smi: str, device="cuda") -> dict:
+def strain_reads(rng, genome):
+    """Phase 8's input: the strains of ``genome``, their reads (n, READ_LEN)
+    in strain order and each read's strain label."""
+    strains = make_strains(rng, genome, N_STRAINS, SNP_EVERY)
+    reads = np.concatenate([sample_reads(rng, s, STRAIN_COVERAGE, READ_LEN) for s in strains])
+    labels = np.repeat(np.arange(N_STRAINS, dtype=np.int32), len(reads) // N_STRAINS)
+    return strains, reads, labels
+
+
+def phase_colored(strains, reads, labels, rich_reads, counters, smi: str, device="cuda") -> dict:
     """Phase 8: the colored path at full width on four strains of phase 3's
-    genome; launches counted from the set count through both color-set
-    compressions (path "colored")."""
+    genome (:func:`strain_reads`); launches counted from the set count
+    through both color-set compressions (path "colored")."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
     from tpu_debruijn_torch import filter as F
     from tpu_debruijn_torch import table_to_numpy
 
     t_phase = time.perf_counter()
-    strains = make_strains(rng, genome, N_STRAINS, SNP_EVERY)
-    reads = np.concatenate([sample_reads(rng, s, STRAIN_COVERAGE, READ_LEN) for s in strains])
-    labels = np.repeat(np.arange(N_STRAINS, dtype=np.int32), len(reads) // N_STRAINS)
+    genome_len = len(strains[0])
     items = [(r, 0, int(lab)) for r, lab in zip(reads, labels)]
     kw = dict(stranded=False, min_obs=2)
     secs = {}
@@ -1431,7 +1468,7 @@ def phase_colored(rng, genome, rich_reads, counters, smi: str, device="cuda") ->
     launches["rank_lists.round_path"] = counters["rank_lists"].round_path
     peak = torch.cuda.max_memory_allocated()
     n = len(table)
-    out = {"strains": N_STRAINS, "substitutions_per_strain": len(genome) // SNP_EVERY,
+    out = {"strains": N_STRAINS, "substitutions_per_strain": genome_len // SNP_EVERY,
            "coverage_per_strain": STRAIN_COVERAGE, "reads": len(reads),
            "observations": len(reads) * (READ_LEN - K + 1), "table_kmers": n,
            "pairs": int(pair_label.shape[0]), "peak_device_bytes": peak}
@@ -1488,7 +1525,7 @@ def phase_colored(rng, genome, rich_reads, counters, smi: str, device="cuda") ->
     present = C.infer_exts_device(table.spec, False, table.kmers)
     check(bool(((censored.exts & ~present) == 0).all()), "an extension still points at a missing kmer")
     out["censored_ext_bits"] = popcount8(table.exts) - popcount8(censored.exts)
-    del censored, present, items, reads, table, pair_label, split
+    del censored, present, items, table, pair_label, split
     torch.cuda.empty_cache()
 
     out["small"] = colored_small(rich_reads[:SMALL_READS], device)
@@ -1766,6 +1803,372 @@ def phase_sharded(reads, table_main: dict, nodes_main, peak_main: int, rich_read
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the command line and the graph API at full size
+# ---------------------------------------------------------------------------
+
+BEAM = 4
+LOOKUPS = 10_000  # get_key_id / get / get_key calls on table kmers
+ITER_SAMPLE = 1_000  # kmers whose hamming_neighbors are held to one_hamming_iter
+HD1_CHUNK = 1 << 17  # kmers a hamming_neighbors chunk: (2^17, 4K, W) int64 candidates
+
+
+def path_ok(graph, path) -> bool:
+    """Node ids unique, and each step an edge of find_edges: leaving (v,
+    entered by side d) by side 1 - d onto w, entered by its side e."""
+    return len({v for v, _ in path}) == len(path) and all(
+        any(t == w and side == e for t, side, _ in graph.find_edges(v, 1 - d))
+        for (v, d), (w, e) in zip(path, path[1:]))
+
+
+def kmers_in_table(table, bases: np.ndarray) -> bool:
+    """Every kmer of ``bases``, canonicalized, is a row of ``table``: one
+    search on the table's device."""
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import kmer as KM
+    from tpu_debruijn_torch import sorting as S
+
+    spec, dev = table.spec, table.kmers.device
+    km = KM.to_torch(KM.kmers_from_bytes(spec, bases), dev)
+    canon, _, _ = F.canonicalize(spec, km, torch.zeros(km.shape[0], dtype=torch.int32, device=dev),
+                                 stranded=False)
+    return bool(S.searchsorted_limbs(table.kmers, canon)[1].all())
+
+
+def against_genome(seq, genome: np.ndarray, device) -> dict:
+    """Where a walk's sequence lies on ``genome``: the orientation in which
+    more of its kmers are genome kmers, the start its first such kmer
+    implies and, where the whole sequence fits there, its Hamming distance
+    to that stretch (DnaSeq.hamming_distance)."""
+    from tpu_debruijn_torch.dna import DnaSeq
+
+    codes, order = torch.sort(kmer_codes(torch.from_numpy(genome).to(device).to(torch.int64), K))
+    best = None
+    for orient, s in (("forward", seq), ("reverse_complement", seq.rc())):
+        q = kmer_codes(torch.from_numpy(s.bases()).to(device).to(torch.int64), K)
+        idx = torch.searchsorted(codes, q).clamp(max=codes.shape[0] - 1)
+        hit = codes[idx] == q
+        n_hit = int(hit.sum())
+        if best is None or n_hit > best["kmers_in_genome"]:
+            first = int(torch.nonzero(hit)[0]) if n_hit else 0
+            best = {"orientation": orient, "kmers_in_genome": n_hit, "kmers": int(q.shape[0]),
+                    "start": int(order[idx[first]]) - first if n_hit else None, "seq": s}
+    s, start = best.pop("seq"), best["start"]
+    fits = start is not None and 0 <= start and start + len(s) <= len(genome)
+    best["hamming_distance"] = (s.hamming_distance(DnaSeq.from_bases(genome[start : start + len(s)]))
+                                if fits else None)
+    return best
+
+
+def walks(graph, table, genome, device) -> dict:
+    """max_path and max_path_beam(BEAM) on ``graph`` with the data as the
+    score and no solid node: each path checked by :func:`path_ok` and its
+    sequence's kmers looked up in ``table``; seconds, nodes, bases and the
+    sequence against ``genome``."""
+    out = {}
+    for name, fn in (("max_path", lambda: graph.max_path(lambda d: float(d), lambda d: False)),
+                     (f"max_path_beam_{BEAM}",
+                      lambda: graph.max_path_beam(BEAM, lambda d: float(d), lambda d: False))):
+        t0 = time.perf_counter()
+        path = fn()
+        secs = time.perf_counter() - t0
+        seq = graph.sequence_of_path(path)
+        check(path_ok(graph, path), f"{name}: a repeated node or a step on no edge")
+        check(kmers_in_table(table, seq.bases()), f"{name}: a kmer of its sequence is not in the table")
+        out[name] = {"s": secs, "nodes": len(path), "bases": len(seq), "genome_bp": len(genome),
+                     **against_genome(seq, genome, device)}
+    return out
+
+
+def dangling(graph) -> np.ndarray:
+    """(n, 2) extension bits of each node side that lead to no node: onto
+    kmers the count dropped (``min_obs``)."""
+    from tpu_debruijn_torch import exts as E
+
+    edges = np.array([[len(graph.find_edges(i, d)) for d in (0, 1)] for i in range(len(graph))])
+    return np.stack([E.num_ext_dir(graph.exts, d) for d in (0, 1)], axis=1) - edges.reshape(-1, 2)
+
+
+def compressed_check(graph, device) -> dict:
+    """is_compressed on the CLI's graph.  compress_kmers never joins a node
+    side with two extensions, one of them onto a kmer ``min_obs`` dropped;
+    is_compressed counts only the extensions that reach a node, so it may
+    return such a pair (the JAX package's does too).  Any pair returned must
+    have a side with such a dangling extension, and compress_graph (which
+    drops them first) must leave a graph where is_compressed finds none."""
+    from tpu_debruijn_torch import graph as G
+
+    t0 = time.perf_counter()
+    pair = graph.is_compressed()
+    out = {"s": time.perf_counter() - t0, "pair": None if pair is None else list(pair)}
+    extra = dangling(graph)
+    out["sides_with_dangling_extensions"] = int((extra > 0).sum())
+    if pair is not None:
+        check(bool((extra[list(pair)] > 0).any()),
+              f"is_compressed() found {pair}, a pair with no dangling extension")
+        again = G.compress_graph(G.BaseGraph.combine([graph.base]).finish(device=device), device=device)
+        check(again.is_compressed() is None, "is_compressed() found a pair after compress_graph")
+        out["nodes_after_compress_graph"] = len(again)
+    return out
+
+
+def one_node_per_kmer(table, device):
+    """A graph of one node a table kmer (exts and counts from the table)."""
+    from tpu_debruijn_torch import graph as G
+    from tpu_debruijn_torch import kmer as KM
+
+    g = G.BaseGraph(table.spec.k, table.stranded)
+    n = len(table)
+    g.add_flat(KM.to_bases_batch_np(table.spec, KM.to_numpy(table.kmers)).reshape(-1),
+               np.full(n, table.spec.k), table.exts.cpu().numpy(), table.counts.cpu().numpy())
+    return g.finish(device=device)
+
+
+def npz_arrays(path) -> dict:
+    with np.load(path) as z:
+        return {name: z[name] for name in z.files}
+
+
+def checkpoints(graph, table, rich_reads, tmp: str, device) -> dict:
+    """Round trips: the graph (GFA bytes), compress_kmers_rich's graph with
+    its int-tuple sidecar and with a pickled one, and the table back onto
+    ``device`` bit for bit; file bytes and seconds."""
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import graph as G
+
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t0
+        return res
+
+    path = os.path.join(tmp, "graph.npz")
+    timed("graph_save", lambda: graph.save(path))
+    loaded = timed("graph_load", lambda: G.DebruijnGraph.load(path, device=device))
+    out["graph_bytes"] = os.path.getsize(path)
+    check(gfa_of(loaded, os.path.join(tmp, "loaded.gfa")) == gfa_of(graph, os.path.join(tmp, "g.gfa")),
+          "the graph's save/load changed its GFA bytes")
+    reads = [(r, 0, i % N_STRAINS) for i, r in enumerate(rich_reads[:SMALL_READS])]
+    small, sets = F.filter_kmers_set(reads, K, min_obs=2, device=device)
+    nodes = C.compress_kmers_rich(small, sets, reduce=union, device=device)
+    ints = [d for _, _, d in nodes]
+    for form, rich in (("int_tuples", ints), ("pickled", [tuple(f"strain{c}" for c in r)
+                                                          for r in ints])):
+        base = G.BaseGraph(K, False)
+        base.add_flat(np.concatenate([s for s, _, _ in nodes]), [len(s) for s, _, _ in nodes],
+                      [e for _, e, _ in nodes], rich=rich)
+        g = base.finish(device=device)
+        p = os.path.join(tmp, f"rich_{form}.npz")
+        g.save(p)
+        back = G.DebruijnGraph.load(p, device=device)
+        check(back.rich == rich and gfa_of(back, p + ".gfa") == gfa_of(g, p + ".want.gfa"),
+              f"the {form} rich sidecar did not round-trip")
+        check(("rich_flat" if form == "int_tuples" else "rich_pickle") in npz_arrays(p),
+              f"the {form} sidecar was saved in the wrong form")
+        out[f"rich_{form}_nodes"] = len(g)
+        out[f"rich_{form}_bytes"] = os.path.getsize(p)
+    path = os.path.join(tmp, "table.npz")
+    timed("table_save", lambda: table.save(path))
+    back = timed("table_load", lambda: F.KmerTable.load(path, device=device))
+    out["table_bytes"] = os.path.getsize(path)
+    check(back.kmers.device == table.kmers.device and all(
+        torch.equal(getattr(back, f), getattr(table, f)) for f in ("kmers", "exts", "counts", "data"))
+          and (back.spec, back.stranded) == (table.spec, table.stranded),
+          "the table's save/load changed it")
+    return out
+
+
+def lookups_and_helpers(table, seed: int) -> dict:
+    """KmerTable lookups and the kmer helpers over the whole table on its
+    device: get_key_id / get / get_key on sampled rows, at + gc == K,
+    hamming_dist(a, a) == 0, hamming_neighbors in chunks (3K candidates a
+    kmer; one_hamming_iter's order on a sample) and the count of kmers with
+    an HD-1 neighbour in the table."""
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch import kmer as KM
+    from tpu_debruijn_torch import sorting as S
+    from tpu_debruijn_torch.neighbors import one_hamming_iter
+
+    spec, dev, n = table.spec, table.kmers.device, len(table)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed)
+    out = {}
+    rows = rng.choice(n, min(LOOKUPS, n), replace=False)
+    kms = KM.to_numpy(table.kmers[torch.from_numpy(rows).to(dev)])
+    exts, data = table.exts.cpu().numpy(), table.data.cpu().numpy()
+    t0 = time.perf_counter()
+    for row, km in zip(rows.tolist(), kms):
+        check(table.get_key_id(km) == row and table.get(km) == (int(exts[row]), int(data[row]))
+              and np.array_equal(table.get_key(row), km), f"lookup of table row {row} failed")
+    out["lookups"] = len(rows)
+    out["lookup_us_per_call"] = (time.perf_counter() - t0) / len(rows) * 1e6
+    t0 = time.perf_counter()
+    check(bool((KM.at_count(spec, table.kmers) + KM.gc_count(spec, table.kmers) == spec.k).all()),
+          "at_count + gc_count != K")
+    check(not bool(KM.hamming_dist(spec, table.kmers, table.kmers).any()), "hamming_dist(a, a) != 0")
+    sync()
+    out["counts_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with_neighbour = 0
+    for lo in range(0, n, HD1_CHUNK):
+        cands, mask = KM.hamming_neighbors(spec, table.kmers[lo : lo + HD1_CHUNK])
+        check(bool((mask.sum(1) == 3 * spec.k).all()), "hamming_neighbors: not 3K candidates a kmer")
+        flat = cands[mask]
+        canon, _, _ = F.canonicalize(spec, flat, torch.zeros(flat.shape[0], dtype=torch.int32,
+                                                             device=dev), stranded=False)
+        found = S.searchsorted_limbs(table.kmers, canon)[1]
+        with_neighbour += int(found.view(-1, 3 * spec.k).any(1).sum())
+    sync()
+    out["hd1_s"] = time.perf_counter() - t0
+    out["kmers_with_hd1_neighbour"] = with_neighbour
+    sample = rows[:ITER_SAMPLE]
+    cands, mask = KM.hamming_neighbors(spec, table.kmers[torch.from_numpy(sample).to(dev)])
+    cands, mask = KM.to_numpy(cands), mask.cpu().numpy()
+    for i in range(len(sample)):
+        want = np.stack(list(one_hamming_iter(spec, kms[i])))
+        check(np.array_equal(cands[i][mask[i]], want), "hamming_neighbors != one_hamming_iter")
+    out["one_hamming_iter_checked"] = len(sample)
+    return out
+
+
+def cli_outputs(fq: str, dev, tmp: str) -> dict:
+    """The command line's outputs on ``dev`` for the FASTQ file ``fq``: GFA
+    and JSON bytes, both walks (paths), and the arrays of the graph's and of
+    the table's checkpoints.  Phase 6 and the card tests hold the CUDA
+    outputs to the CPU ones."""
+    from tpu_debruijn_torch import assemble
+    from tpu_debruijn_torch import filter as F
+    from tpu_debruijn_torch.io import read_fastq
+
+    name = torch.device(dev).type
+    gfa, js, gnpz, tnpz = (os.path.join(tmp, f"cli_{name}.{ext}") for ext in ("gfa", "json", "g.npz",
+                                                                            "t.npz"))
+    graph = assemble.run([fq, "-o", gfa, "--json", js, "--device", str(dev)])
+    graph.save(gnpz)
+    F.filter_kmers([(r, 0, 0) for r in read_fastq(fq)], K, min_obs=2, device=dev).save(tnpz)
+    out = {}
+    for key, path in (("gfa", gfa), ("json", js)):
+        with open(path, "rb") as f:
+            out[key] = f.read()
+    out["max_path"] = graph.max_path(lambda d: float(d), lambda d: False)
+    out["max_path_beam"] = graph.max_path_beam(BEAM, lambda d: float(d), lambda d: False)
+    out["graph_npz"] = npz_arrays(gnpz)
+    out["table_npz"] = npz_arrays(tnpz)
+    return out
+
+
+def same_files(a, b) -> bool:
+    """Equal outputs of :func:`cli_outputs`: bytes, paths, npz arrays
+    (dtypes included)."""
+    return a.keys() == b.keys() and all(
+        same_outputs(list(a[key].values()), list(b[key].values())) and a[key].keys() == b[key].keys()
+        if isinstance(b[key], dict) else a[key] == b[key] for key in b)
+
+
+def phase_cli(genome, strains, reads, rich_reads, counters, smi: str, tmp: str, seed: int,
+              device="cuda") -> dict:
+    """Phase 10: the command line on phase 8's four-strain reads written to
+    a FASTQ file (k = 31, min_obs = 2, unstranded), launches counted over
+    that run (path "cli"); then the graph API on its graph and table."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import assemble
+    from tpu_debruijn_torch import graph as G
+
+    t_phase = time.perf_counter()
+    fq = os.path.join(tmp, "strains.fq")
+    t0 = time.perf_counter()
+    write_fastq(fq, reads)
+    out = {"reads": len(reads), "write_fastq_s": time.perf_counter() - t0}
+    gfa, js = os.path.join(tmp, "cli.gfa"), os.path.join(tmp, "cli.json")
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    graph = assemble.run([fq, "-o", gfa, "--json", js, "--device", device], stats=stats)
+    out["run_s"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["stage_s"] = {key[:-2]: v[0] for key, v in stats.items()}
+    out["nodes"] = len(graph)
+    with open(gfa, "rb") as f:
+        gfa_bytes = f.read()
+    with open(js, "rb") as f:
+        json_bytes = f.read()
+    out["gfa_bytes"], out["json_bytes"] = len(gfa_bytes), len(json_bytes)
+    parsed = json.loads(json_bytes)
+    check(len(parsed["nodes"]) == len(graph) and [n["id"] for n in parsed["nodes"]]
+          == [str(i) for i in range(len(graph))], "the CLI's JSON does not hold one node a unitig")
+    out["json_links"] = len(parsed["links"])
+    del parsed
+
+    table = T.filter_kmers([(r, 0, 0) for r in reads], K, min_obs=2, device=device)
+    want = T.from_compress_output(K, False, T.compress_kmers(table, device=device)).finish(device=device)
+    check(gfa_of(want, os.path.join(tmp, "in_memory.gfa")) == gfa_bytes,
+          "the CLI's GFA != filter_kmers -> compress_kmers -> to_gfa on the reads in memory")
+    del want
+    out["table_kmers"] = len(table)
+    log(f"phase 10: the CLI on {len(reads)} reads: {len(graph)} unitigs, GFA == the in-memory "
+        f"path's; {json.dumps(out)}")
+
+    out["walks"] = walks(graph, table, genome, device)
+    log("phase 10: walks " + json.dumps(out["walks"]))
+
+    out["is_compressed"] = compressed_check(graph, device)
+    rich_table = T.filter_kmers([(r, 0, 0) for r in rich_reads], K, min_obs=2, device=device)
+    rich_nodes = T.compress_kmers(rich_table, device=device)
+    per_kmer = one_node_per_kmer(rich_table, device)
+    t0 = time.perf_counter()
+    pair = per_kmer.is_compressed()
+    out["is_compressed_per_kmer_s"] = time.perf_counter() - t0
+    check(pair is not None, "is_compressed() found no pair on a one-node-per-kmer graph")
+    recompressed = G.compress_graph(per_kmer, device=device)
+    check([r[0] for r in node_rows(recompressed)] == canon_seqs(rich_nodes),
+          "compress_graph of the one-node-per-kmer graph != phase 5's unitigs")
+    out["is_compressed"].update({"per_kmer_nodes": len(per_kmer), "per_kmer_pair": list(pair),
+                                 "per_kmer_recompressed_nodes": len(recompressed)})
+    del per_kmer, recompressed, rich_table, rich_nodes
+
+    exports = {}
+    t0 = time.perf_counter()
+    w = io.StringIO()
+    graph.write_gfa(w)
+    exports["write_gfa_s"] = time.perf_counter() - t0
+    check(w.getvalue().encode() == gfa_bytes, "write_gfa != to_gfa")
+    t0 = time.perf_counter()
+    w = io.StringIO()
+    graph.to_json(lambda d: d, w)
+    exports["to_json_s"] = time.perf_counter() - t0
+    check(w.getvalue().encode() == json_bytes, "to_json != the CLI's JSON file")
+    del w
+    for name, fn in (("to_dot", lambda p: graph.to_dot(p, lambda d: f"count {d}")),
+                     ("to_gfa_with_tags", lambda p: graph.to_gfa_with_tags(
+                         p, lambda node: f"KC:i:{node.data()}"))):
+        p = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        fn(p)
+        exports[name + "_s"] = time.perf_counter() - t0
+        exports[name + "_bytes"] = os.path.getsize(p)
+    out["exports"] = exports
+    out["checkpoints"] = checkpoints(graph, table, rich_reads, tmp, device)
+    log("phase 10: exports " + json.dumps(exports) + "; checkpoints " + json.dumps(out["checkpoints"]))
+    del graph
+    out["lookups"] = lookups_and_helpers(table, seed)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"phase 10 (CLI and graph API, {smi}): " + json.dumps({k: v for k, v in out.items()
+                                                              if k != "launches"}))
+    return out
+
+
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
@@ -1937,7 +2340,8 @@ def main(argv=None) -> int:
         log("phase 7 (corpus path): " + json.dumps({"device": smi, **corpus}))
 
         # phase 8: the colored path at full width
-        colored = phase_colored(rng, genome, rich_reads, counters, smi)
+        strains, reads8, labels8 = strain_reads(rng, genome)
+        colored = phase_colored(strains, reads8, labels8, rich_reads, counters, smi)
         by_path["colored"] = colored.pop("launches")
         assembly["phase 8"] = colored.pop("assembly")
         log("host vs device assembly: " + json.dumps({"device": smi, **assembly}))
@@ -1946,7 +2350,12 @@ def main(argv=None) -> int:
         sharded = phase_sharded(reads, table_main, nodes_main, main["peak_device_bytes"],
                                 rich_reads, counters, smi)
         by_path["sharded"] = sharded.pop("launches")
-        del reads, nodes_main, rich_reads
+        del reads, nodes_main
+
+        # phase 10: the command line on phase 8's reads, and the graph API
+        cli = phase_cli(genome, strains, reads8, rich_reads, counters, smi, tmp, args.seed)
+        by_path["cli"] = cli.pop("launches")
+        del reads8, labels8, rich_reads
 
         for path, launches in by_path.items():
             for name in on_path:

@@ -487,3 +487,19 @@ def test_compress_graph_cuda_matches_cpu(cuda, tmp_path):
             g.to_gfa(str(tmp_path / f"{dev}.gfa"))
             out[dev] = ((tmp_path / f"{dev}.gfa").read_bytes(), g.data.tolist())
         assert out["cuda"] == out["cpu"], kw
+
+
+@pytest.mark.cuda
+def test_cli_and_walks_cuda_match_cpu(cuda, tmp_path):
+    """assemble.run on the card equals its CPU run (chip_smoke.py's phase 6
+    harness): GFA and JSON bytes, max_path and max_path_beam, and the arrays
+    of the graph's and the table's checkpoints."""
+    import chip_smoke
+
+    rng = np.random.default_rng(31)
+    fq = str(tmp_path / "reads.fq")
+    chip_smoke.write_fastq(fq, chip_smoke.sample_reads(
+        rng, chip_smoke.make_genome(rng, 20_000, repeat_rich=True), 15, 150))
+    got = {dev: chip_smoke.cli_outputs(fq, dev, str(tmp_path)) for dev in ("cuda", "cpu")}
+    assert len(got["cpu"]["max_path_beam"]) > 1 and len(got["cpu"]["gfa"]) > 1000
+    assert chip_smoke.same_files(got["cuda"], got["cpu"])

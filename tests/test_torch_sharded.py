@@ -302,7 +302,7 @@ def test_fix_exts_edges_and_nodes(shard_graph):
         assert tg.get_valid_exts(i, valid) == jg.get_valid_exts(i, valid)
         assert tg.get_valid_exts(i, None) == jg.get_valid_exts(i, None)
     node, jnode = tg.get_node(5), jg.get_node(5)
-    assert (node.len(), node.data(), node.exts()) == (jnode.len(), jnode.data(), int(jnode.exts().val))
+    assert (node.len(), node.data(), node.exts().val) == (jnode.len(), jnode.data(), jnode.exts().val)
     assert (node.l_edges(), node.r_edges(), node.edges(1)) == (jnode.l_edges(), jnode.r_edges(),
                                                                jnode.edges(1))
     assert [n.node_id for n in tg.iter_nodes()] == list(range(len(tg)))

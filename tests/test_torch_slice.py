@@ -92,7 +92,9 @@ def test_port_never_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'tpu_debruijn_torch.kernels.pointer_jump' in names, names\n"
-        "from tpu_debruijn_torch import clean, compress, filter, graph, msp, parallel\n"
+        "from tpu_debruijn_torch import assemble, clean, compress, exts, filter, graph, kmer, msp, "
+        "neighbors, parallel\n"
+        "assert 'tpu_debruijn_torch.assemble' in names and 'tpu_debruijn_torch.neighbors' in names\n"
         "for mod, attrs in ((tpu_debruijn_torch, 'CompressionSpec SimpleCompress ScmapCompress "
         "compress_kmers_color_sets compress_kmers_rich compress_kmers_no_exts'), (compress, "
         "'assemble_unitigs_device compress_kmers_flat_device infer_exts_device'), (filter, "
@@ -100,7 +102,14 @@ def test_port_never_imports_jax():
         "CountFilterEqClass filter_kmers_with_summarizer remove_censored_exts_sharded'), "
         "(graph, 'from_flat_output compress_graph Node'), (parallel, 'sharded_tables "
         "assemble_sharded make_mesh ShardPlan'), (msp, 'msp_intervals_device'), (clean, 'clean_tips'), "
-        "(compress, 'stitch_flat')):\n"
+        "(compress, 'stitch_flat'), (graph.DebruijnGraph, 'is_empty search_kmer find_link is_compressed "
+        "sequence_of_path max_path max_path_beam write_gfa to_gfa_with_tags to_dot to_json_rest to_json "
+        "print print_with_data save load'), (graph.Node, 'sequence iter_kmers'), (filter.KmerTable, "
+        "'kmer_ints get_key_id get get_key to_tuples save load'), (tpu_debruijn_torch, 'bases Dir Exts "
+        "DnaSeq DnaSeqBuilder PackedSeqSet SeqSlice'), (neighbors, 'one_hamming_iter'), (assemble, "
+        "'run main'), (kmer, 'from_int to_int from_bases to_bases to_string from_string kmers_from_bytes "
+        "kmers_from_ascii empty mask_value extend min_rc set_base hamming_dist at_count gc_count "
+        "hamming_neighbors'), (exts, 'merge add mk_left mk_right mk single_dir from_slice_bounds')):\n"
         "    missing = [a for a in attrs.split() if not hasattr(mod, a)]\n"
         "    assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'tpu_debruijn') or m.startswith(('jax.', 'tpu_debruijn.')))\n"

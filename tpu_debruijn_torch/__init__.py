@@ -30,7 +30,7 @@ the MSP-sharded assembly on logical shards of one device,
          compress -> device stitch, or graph.compress_graph on the host)
     clean.clean_tips -> graph.compress_graph
 
-and the colored path and the policy layer,
+the colored path and the policy layer,
 
     filter.filter_kmers_set_arrays -> compress_kmers_color_sets
         -> graph.from_flat_output / from_compress_output
@@ -41,30 +41,49 @@ and the colored path and the policy layer,
     compress_kmers_rich, compress_kmers_no_exts,
     filter.remove_censored_exts(_sharded)
 
-with the modules they run: ``bases``, ``io`` (FASTA/FASTQ reading, whole
-or in packed blocks, with the port's own host codec), ``kmer``, ``exts``,
-``sorting``, ``filter`` (``data_reduce`` 'label_first', 'min', 'max',
-'sum', 'obs_min' and 'none'; the host and device merges of streaming and
-its colored pairs; label sets, eq classes, summarizers, censored
-extensions), ``compress`` (every policy; ``link_chains`` and
-``link_chains_ordered``; unitig assembly on the host or on the device),
-``dna`` (``PackedSeqSet``), ``graph`` (``BaseGraph`` with its ``rich``
-sidecar, link table, ``Node``, ``fix_exts``, ``compress_graph``, GFA
-export), ``msp`` (the minimizer scan and its host API), ``parallel``
-(``make_mesh``, ``ShardPlan``, ``sharded_tables``, ``assemble_sharded``),
-``clean`` (tips), ``convert`` (tables and graphs) and the kernels in
-``kernels/``: the two kmer kernels, the gathers and pointer jumps that
-replace the Pallas gather probes, among them the doubling loop of chain
-linking in one launch, and the ruling-set list ranking.
+the graph API on the assembled graph,
 
-Not ported yet: ``KmerTable``'s ``get``/``get_key_id``/``to_tuples``/
-``save``/``load``, the batched ``read_fastx``, ``parallel.multihost``
-(several processes), the rest of ``graph`` (``is_compressed``, walks,
-dot/JSON export, save/load with the ``rich`` sidecar, ``Node.sequence``),
-``neighbors`` and ``dna``'s ``DnaSeq``, and the ``dna``/``kmer``/``exts``
-helpers the paths above do not run.
+    DebruijnGraph.max_path / max_path_beam -> sequence_of_path -> DnaSeq
+    search_kmer / find_link / find_edges / is_compressed / Node
+    to_gfa / write_gfa / to_gfa_with_tags / to_dot / to_json(_rest)
+    DebruijnGraph.save / load and KmerTable.save / load (the JAX
+        package's npz files, readable by either package)
+    KmerTable.get_key_id / get / get_key / to_tuples / kmer_ints
+
+and the command line, ``python -m tpu_debruijn_torch.assemble reads.fq -o
+out.gfa`` (``assemble.run`` in process), with the modules they run:
+``bases``, ``io`` (FASTA/FASTQ reading, whole or in packed blocks, with the
+port's own host codec), ``kmer`` (the limb ops, the host converters and
+the bit helpers: popcounts, Hamming neighbours), ``exts`` (the tensor ops,
+``Dir`` and the scalar ``Exts``), ``neighbors``, ``sorting``, ``filter``
+(``data_reduce`` 'label_first', 'min', 'max', 'sum', 'obs_min' and 'none';
+the host and device merges of streaming and its colored pairs; label sets,
+eq classes, summarizers, censored extensions; ``KmerTable``'s lookups and
+checkpoints), ``compress`` (every policy; ``link_chains`` and
+``link_chains_ordered``; unitig assembly on the host or on the device),
+``dna`` (``DnaSeq``, ``DnaSeqBuilder``, ``SeqSlice``, ``PackedSeqSet``),
+``graph``, ``msp`` (the minimizer scan and its host API), ``parallel``
+(``make_mesh``, ``ShardPlan``, ``sharded_tables``, ``assemble_sharded``),
+``clean`` (tips), ``convert`` (tables and graphs), ``assemble`` and the
+kernels in ``kernels/``: the two kmer kernels, the gathers and pointer
+jumps that replace the Pallas gather probes, among them the doubling loop
+of chain linking in one launch, and the ruling-set list ranking.
+
+Not ported yet: ``parallel.multihost`` (``assemble_multiprocess``,
+``initialize``, ``local_read_slice``: several processes).  The JAX
+package's static-shape machinery has no counterpart by design: see
+ROADMAP.md section 1 for each such name and where the port does its work.
 """
 
+from tpu_debruijn_torch import bases
+from tpu_debruijn_torch.bases import (
+    base_to_bits,
+    bits_to_ascii,
+    bits_to_base,
+    complement,
+    dna_only_base_to_bits,
+    is_valid_base,
+)
 from tpu_debruijn_torch.compress import (
     CompressionSpec,
     ScmapCompress,
@@ -75,6 +94,8 @@ from tpu_debruijn_torch.compress import (
     compress_kmers_rich,
 )
 from tpu_debruijn_torch.convert import graph_from_reference, table_from_reference, table_to_numpy
+from tpu_debruijn_torch.dna import DnaSeq, DnaSeqBuilder, PackedSeqSet, SeqSlice
+from tpu_debruijn_torch.exts import Dir, Exts
 from tpu_debruijn_torch.filter import KmerTable, PackedReadBlock, filter_kmers, filter_kmers_streaming
 from tpu_debruijn_torch.graph import BaseGraph, DebruijnGraph, Node, compress_graph, from_compress_output
 from tpu_debruijn_torch.io import read_fasta, read_fastq, read_fastx, stream_fastx_blocks
@@ -84,20 +105,33 @@ __all__ = [
     "BaseGraph",
     "CompressionSpec",
     "DebruijnGraph",
+    "Dir",
+    "DnaSeq",
+    "DnaSeqBuilder",
+    "Exts",
     "KmerSpec",
     "KmerTable",
     "Node",
     "PackedReadBlock",
+    "PackedSeqSet",
     "ScmapCompress",
+    "SeqSlice",
     "SimpleCompress",
+    "base_to_bits",
+    "bases",
+    "bits_to_ascii",
+    "bits_to_base",
+    "complement",
     "compress_graph",
     "compress_kmers",
     "compress_kmers_color_sets",
     "compress_kmers_no_exts",
     "compress_kmers_rich",
+    "dna_only_base_to_bits",
     "filter_kmers",
     "filter_kmers_streaming",
     "from_compress_output",
+    "is_valid_base",
     "graph_from_reference",
     "read_fasta",
     "read_fastq",

@@ -1,8 +1,11 @@
-"""Packed DNA sequence storage (counterpart of ``PackedSeqSet`` in
-``tpu_debruijn/dna.py``).
+"""Packed DNA sequence containers (counterpart of ``tpu_debruijn/dna.py``).
 
-Host numpy, copied: the unitig store of the graph.  Storage is uint32
-words, 16 bases per word, first base in the most significant bits.
+rust-debruijn's DnaString / DnaStringSlice / PackedDnaStringSet
+(dna_string.rs:72-822): 2-bit packed sequences of any length with
+slicing, reverse complement and kmer extraction, and a many-sequences-in-
+one-buffer set, the graph's unitig store.  Host numpy, as in the JAX
+package: storage is uint32 words, 16 bases per word, first base in the
+most significant bits.
 """
 
 from __future__ import annotations
@@ -10,6 +13,10 @@ from __future__ import annotations
 from typing import Iterable, List
 
 import numpy as np
+
+from tpu_debruijn_torch import bases as B
+from tpu_debruijn_torch import kmer as KM
+from tpu_debruijn_torch.kmer import KmerSpec
 
 
 def pack_bases(bases: np.ndarray) -> np.ndarray:
@@ -30,6 +37,361 @@ def unpack_bases(words: np.ndarray, length: int) -> np.ndarray:
     shifts = (30 - 2 * np.arange(16, dtype=np.uint32)).astype(np.uint32)
     all_b = ((words[:, None] >> shifts[None, :]) & 3).reshape(-1)
     return all_b[:length].astype(np.uint8)
+
+
+class DnaSeq:
+    """A 2-bit packed DNA sequence (DnaString equivalent, dna_string.rs:72).
+
+    Also covers the DnaBytes/DnaSlice/Lmer roles (lib.rs:428-533, vmer.rs):
+    any base buffer converts via from_bases; slices are cheap numpy views.
+    """
+
+    __slots__ = ("words", "length")
+
+    def __init__(self, words: np.ndarray, length: int):
+        self.words = words
+        self.length = int(length)
+
+    # constructors -------------------------------------------------------
+    @staticmethod
+    def from_bases(bases) -> "DnaSeq":
+        bases = np.asarray(bases, np.uint8)
+        return DnaSeq(pack_bases(bases), len(bases))
+
+    @staticmethod
+    def from_dna_string(s: str) -> "DnaSeq":
+        """ACGT string (unknown chars -> A; dna_string.rs:187)."""
+        return DnaSeq.from_bases(B.ascii_to_bases(s))
+
+    @staticmethod
+    def from_dna_only_string(s: str) -> List["DnaSeq"]:
+        """Split on non-ACGT characters (dna_string.rs:198)."""
+        if isinstance(s, str):
+            s = s.encode()
+        arr = np.frombuffer(bytes(s), dtype=np.uint8)
+        valid = B._ASCII_VALID[arr]
+        out = []
+        start = None
+        for i, v in enumerate(valid):
+            if v and start is None:
+                start = i
+            elif not v and start is not None:
+                out.append(DnaSeq.from_bases(B._ASCII_TO_BITS[arr[start:i]]))
+                start = None
+        if start is not None:
+            out.append(DnaSeq.from_bases(B._ASCII_TO_BITS[arr[start:]]))
+        return out
+
+    @staticmethod
+    def from_acgt_bytes(b) -> "DnaSeq":
+        """ASCII bytes, non-ACGT -> A (dna_string.rs:228; the native-codec
+        bulk path replaces the reference's AVX2 fast path)."""
+        from tpu_debruijn_torch.io.native import ascii_to_codes
+
+        return DnaSeq.from_bases(ascii_to_codes(b))
+
+    @staticmethod
+    def from_acgt_bytes_hashn(b, name: bytes) -> "DnaSeq":
+        """ASCII bytes; non-ACGT positions become a repeatable pseudo-random
+        base from a hash of (read name, position) (dna_string.rs:255-277)."""
+        from tpu_debruijn_torch.io.native import ascii_to_codes
+
+        if isinstance(b, str):
+            b = b.encode()
+        codes, mask, bad = ascii_to_codes(b, with_mask=True)
+        if bad:
+            import hashlib
+
+            pos = np.nonzero(~mask)[0]
+            seed = hashlib.blake2b(bytes(name), digest_size=8).digest()
+            rnd = np.array(
+                [
+                    hashlib.blake2b(
+                        seed + int(i).to_bytes(8, "little"), digest_size=8
+                    ).digest()[0]
+                    % 4
+                    for i in pos
+                ],
+                np.uint8,
+            )
+            codes = codes.copy()
+            codes[pos] = rnd
+        return DnaSeq.from_bases(codes)
+
+    @staticmethod
+    def blank(length: int) -> "DnaSeq":
+        return DnaSeq.from_bases(np.zeros(length, np.uint8))
+
+    # incremental builders (dna_string.rs:303-380).  DnaSeq is an
+    # immutable value type here, so these return NEW sequences; use
+    # DnaSeqBuilder for amortized O(1)-per-base accumulation.
+    def push(self, base: int) -> "DnaSeq":
+        """Append one 0-3 base (DnaString::push, dna_string.rs:303)."""
+        return DnaSeq.from_bases(np.append(self.bases(), np.uint8(base & 3)))
+
+    def extend(self, bases) -> "DnaSeq":
+        """Append many 0-3 bases (DnaString::extend, dna_string.rs:312)."""
+        bs = np.fromiter((int(b) & 3 for b in bases), np.uint8)
+        return DnaSeq.from_bases(np.concatenate([self.bases(), bs]))
+
+    def push_bytes(self, packed: bytes, seq_length: int) -> "DnaSeq":
+        """Append ``seq_length`` bases read from 2-bit packed bytes,
+        LSB-first within each byte (DnaString::push_bytes,
+        dna_string.rs:351-366)."""
+        arr = np.frombuffer(bytes(packed), np.uint8)
+        if seq_length > len(arr) * 4:
+            raise ValueError("Number of elements to push exceeds array length")
+        i = np.arange(seq_length)
+        vals = (arr[i // 4] >> ((i % 4) * 2).astype(np.uint8)) & 3
+        return DnaSeq.from_bases(
+            np.concatenate([self.bases(), vals.astype(np.uint8)])
+        )
+
+    # accessors ----------------------------------------------------------
+    def __len__(self):
+        return self.length
+
+    def is_empty(self) -> bool:
+        return self.length == 0
+
+    def bases(self) -> np.ndarray:
+        return unpack_bases(self.words, self.length)
+
+    def get(self, pos: int) -> int:
+        w, o = divmod(pos, 16)
+        return int((self.words[w] >> np.uint32(30 - 2 * o)) & 3)
+
+    def get_kmer(self, k: int, pos: int) -> np.ndarray:
+        """Kmer limbs at position pos (Vmer::get_kmer, lib.rs:366)."""
+        return KM.from_bases(KmerSpec(k), self.bases()[pos : pos + k])
+
+    def first_kmer(self, k: int) -> np.ndarray:
+        return self.get_kmer(k, 0)
+
+    def last_kmer(self, k: int) -> np.ndarray:
+        return self.get_kmer(k, self.length - k)
+
+    def set(self, pos: int, val: int) -> "DnaSeq":
+        """New sequence with base ``pos`` replaced (MerImmut, lib.rs:331)."""
+        w, o = divmod(pos, 16)
+        words = self.words.copy()
+        sh = np.uint32(30 - 2 * o)
+        words[w] = (words[w] & ~(np.uint32(3) << sh)) | (np.uint32(val & 3) << sh)
+        return DnaSeq(words, self.length)
+
+    def iter_kmers(self, k: int):
+        b = self.bases()
+        spec = KmerSpec(k)
+        for i in range(self.length - k + 1):
+            yield KM.from_bases(spec, b[i : i + k])
+
+    def iter_kmer_exts(self, k: int, seq_exts: int = 0):
+        """Yield (kmer limbs, exts) per position (Vmer::iter_kmer_exts,
+        lib.rs:408-421): each kmer's extensions are its neighboring bases
+        within this sequence, falling back to ``seq_exts`` at the ends."""
+        from tpu_debruijn_torch import exts as E
+
+        b = self.bases()
+        spec = KmerSpec(k)
+        n = self.length - k + 1
+        for i in range(n):
+            e = E.from_slice_bounds(b, i, k)
+            if i == 0:
+                e |= seq_exts & 0x0F
+            if i == n - 1:
+                e |= seq_exts & 0xF0
+            yield KM.from_bases(spec, b[i : i + k]), int(e)
+
+    def slice(self, start: int, end: int) -> "DnaSeq":
+        return DnaSeq.from_bases(self.bases()[start:end])
+
+    def slice_view(self, start: int, end: int) -> "SeqSlice":
+        """Zero-copy view (DnaString::slice, dna_string.rs:430-439)."""
+        return SeqSlice(self, start, end - start, False)
+
+    def prefix(self, n: int) -> "DnaSeq":
+        return self.slice(0, n)
+
+    def suffix(self, n: int) -> "DnaSeq":
+        return self.slice(self.length - n, self.length)
+
+    def rc(self) -> "DnaSeq":
+        return DnaSeq.from_bases((3 - self.bases()[::-1]).astype(np.uint8))
+
+    def reverse(self) -> "DnaSeq":
+        return DnaSeq.from_bases(self.bases()[::-1])
+
+    def hamming_distance(self, other: "DnaSeq") -> int:
+        return int((self.bases() != other.bases()).sum())
+
+    def ndiffs(self, other: "DnaSeq") -> int:
+        """Differing-base count via packed-word XOR + popcount, the
+        reference's block-wise fast path (dna_string.rs:523-539)."""
+        if self.length != other.length:
+            raise ValueError("ndiffs requires equal lengths")
+        x = self.words ^ other.words
+        pair = (x | (x >> np.uint32(1))) & np.uint32(0x55555555)
+        return int(
+            np.unpackbits(pair.view(np.uint8)).sum()
+        )
+
+    def at_count(self) -> int:
+        """Number of A/T bases (Mer::at_count, lib.rs:151-158)."""
+        b = self.bases()
+        return int(((b == 0) | (b == 3)).sum())
+
+    def gc_count(self) -> int:
+        """Number of G/C bases (Mer::gc_count, lib.rs:161)."""
+        return self.length - self.at_count()
+
+    def to_dna_string(self) -> str:
+        return B.bases_to_str(self.bases())
+
+    def to_ascii(self) -> bytes:
+        return B.bases_to_ascii(self.bases())
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, DnaSeq)
+            and self.length == other.length
+            and np.array_equal(self.bases(), other.bases())
+        )
+
+    def __repr__(self):
+        s = self.to_dna_string()
+        return s if len(s) <= 60 else s[:57] + "..."
+
+
+class DnaSeqBuilder:
+    """Amortized incremental builder for DnaSeq (the mutable-accumulation
+    role of DnaString::push/extend, dna_string.rs:303-349)."""
+
+    def __init__(self):
+        self._chunks: List[np.ndarray] = []
+        self._len = 0
+
+    def __len__(self):
+        return self._len
+
+    def push(self, base: int) -> None:
+        self._chunks.append(np.array([base & 3], np.uint8))
+        self._len += 1
+
+    def extend(self, bases) -> None:
+        arr = (
+            np.asarray(
+                list(bases) if not isinstance(bases, np.ndarray) else bases,
+                np.uint8,
+            )
+            & 3
+        )
+        self._chunks.append(arr)
+        self._len += len(arr)
+
+    def clear(self) -> None:
+        self._chunks = []
+        self._len = 0
+
+    def build(self) -> DnaSeq:
+        if not self._chunks:
+            return DnaSeq.from_bases(np.zeros(0, np.uint8))
+        return DnaSeq.from_bases(np.concatenate(self._chunks))
+
+
+class SeqSlice:
+    """Zero-copy view ``{parent, start, length, is_rc}`` of a DnaSeq
+    (DnaStringSlice equivalent, dna_string.rs:541-758).
+
+    No bases are copied: ``get`` applies the complement-and-mirror remap
+    when ``is_rc`` (dna_string.rs:577-583); ``rc()`` just flips the flag
+    (dna_string.rs:596-603); re-slicing remaps coordinates under rc
+    (dna_string.rs:668-695).  ``to_owned`` materializes a DnaSeq.
+    """
+
+    __slots__ = ("parent", "start", "length", "is_rc")
+
+    def __init__(self, parent: "DnaSeq", start: int, length: int, is_rc: bool = False):
+        if start < 0 or start + length > len(parent):
+            raise ValueError("slice out of range")
+        self.parent = parent
+        self.start = int(start)
+        self.length = int(length)
+        self.is_rc = bool(is_rc)
+
+    def __len__(self):
+        return self.length
+
+    def is_empty(self) -> bool:
+        return self.length == 0
+
+    def get(self, pos: int) -> int:
+        """dna_string.rs:577-583: mirror + complement under rc."""
+        if self.is_rc:
+            return 3 - self.parent.get(self.start + self.length - 1 - pos)
+        return self.parent.get(self.start + pos)
+
+    def rc(self) -> "SeqSlice":
+        """Flip the orientation flag only (dna_string.rs:596-603)."""
+        return SeqSlice(self.parent, self.start, self.length, not self.is_rc)
+
+    def slice(self, start: int, end: int) -> "SeqSlice":
+        """Re-slice, remapping coordinates under rc (dna_string.rs:668-695)."""
+        if not (0 <= start <= end <= self.length):
+            raise ValueError("slice out of range")
+        ln = end - start
+        if self.is_rc:
+            return SeqSlice(self.parent, self.start + self.length - end, ln, True)
+        return SeqSlice(self.parent, self.start + start, ln, False)
+
+    def prefix(self, n: int) -> "SeqSlice":
+        return self.slice(0, n)
+
+    def suffix(self, n: int) -> "SeqSlice":
+        return self.slice(self.length - n, self.length)
+
+    def bases(self) -> np.ndarray:
+        b = self.parent.bases()[self.start : self.start + self.length]
+        return (3 - b[::-1]).astype(np.uint8) if self.is_rc else b
+
+    def get_kmer(self, k: int, pos: int) -> np.ndarray:
+        """Pull from the parent and rc if needed (dna_string.rs:616-626)."""
+        return KM.from_bases(KmerSpec(k), self.bases()[pos : pos + k])
+
+    def first_kmer(self, k: int) -> np.ndarray:
+        return self.get_kmer(k, 0)
+
+    def last_kmer(self, k: int) -> np.ndarray:
+        return self.get_kmer(k, self.length - k)
+
+    def iter_kmers(self, k: int):
+        b = self.bases()
+        spec = KmerSpec(k)
+        for i in range(self.length - k + 1):
+            yield KM.from_bases(spec, b[i : i + k])
+
+    def to_owned(self) -> "DnaSeq":
+        """Materialize (dna_string.rs:642-666)."""
+        return DnaSeq.from_bases(self.bases())
+
+    to_dna_seq = to_owned
+
+    def to_dna_string(self) -> str:
+        return B.bases_to_str(self.bases())
+
+    def to_ascii(self) -> bytes:
+        return B.bases_to_ascii(self.bases())
+
+    def __eq__(self, other):
+        if isinstance(other, (SeqSlice, DnaSeq)):
+            return self.length == len(other) and np.array_equal(
+                self.bases(),
+                other.bases(),
+            )
+        return NotImplemented
+
+    def __repr__(self):
+        s = self.to_dna_string()
+        return s if len(s) <= 60 else s[:57] + "..."
 
 
 class PackedSeqSet:
@@ -168,6 +530,9 @@ class PackedSeqSet:
             head = unpack_bases(self._words[w0:nw], (nw - w0) * 16)
             seg = np.concatenate([head, self._tail])
         return seg[off : off + ln]
+
+    def get(self, i: int) -> DnaSeq:
+        return DnaSeq.from_bases(self.get_bases(i))
 
     def packed_words(self) -> np.ndarray:
         """Whole buffer as packed uint32 words (checkpoint format)."""

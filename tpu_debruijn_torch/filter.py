@@ -39,7 +39,7 @@ one search of each kmer's eight neighbors (:func:`neighbor_bits`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +115,56 @@ class KmerTable:
 
     def __len__(self):
         return self.kmers.shape[0]
+
+    def kmer_ints(self) -> List[int]:
+        return [KM.to_int(self.spec, row) for row in KM.to_numpy(self.kmers)]
+
+    # -- lookups (BoomHashMap2 surface: filter.rs:9,228; boomphf get) -----
+    def get_key_id(self, kmer_limbs) -> Optional[int]:
+        """Row of one (W,) kmer in the sorted table, or None
+        (Mphf::try_hash): one binary search on the table's device, one read
+        of its result."""
+        q = torch.from_numpy(np.asarray(kmer_limbs, np.uint32).astype(np.int64).reshape(1, self.spec.w))
+        idx, found = S.searchsorted_limbs(self.kmers, q.to(self.kmers.device))
+        i, ok = torch.stack([idx[0], found[0].to(torch.int64)]).tolist()
+        return i if ok else None
+
+    def get(self, kmer_limbs):
+        """(exts, data) of a kmer, or None (BoomHashMap2::get)."""
+        i = self.get_key_id(kmer_limbs)
+        if i is None:
+            return None
+        return tuple(torch.stack([self.exts[i], self.data[i]]).tolist())
+
+    def get_key(self, i: int) -> np.ndarray:
+        """(W,) uint32 limbs of row i (BoomHashMap2::get_key)."""
+        return KM.to_numpy(self.kmers[i])
+
+    def to_tuples(self):
+        """[(kmer as an int, exts, count)] in table order."""
+        exts, counts = self.exts.tolist(), self.counts.tolist()
+        return [(v, exts[i], counts[i]) for i, v in enumerate(self.kmer_ints())]
+
+    # -- checkpoint (kmers and exts derive Serialize, kmer.rs:231) --------
+    def save(self, path) -> None:
+        """The JAX package's npz: ``k``, ``stranded``, uint32 ``kmers``,
+        int32 ``exts``/``counts``/``data``, and ``all_kmers`` when present."""
+        extra = {} if self.all_kmers is None else {"all_kmers": KM.to_numpy(self.all_kmers)}
+        col = lambda t: t.cpu().numpy().astype(np.int32)
+        np.savez_compressed(path, k=self.spec.k, stranded=self.stranded,
+                            kmers=KM.to_numpy(self.kmers), exts=col(self.exts),
+                            counts=col(self.counts), data=col(self.data), **extra)
+
+    @staticmethod
+    def load(path, device="cuda") -> "KmerTable":
+        """A table saved by :meth:`save` or by the JAX package, on ``device``."""
+        z = np.load(path)
+        spec = KmerSpec(int(z["k"]))
+        col = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+        limbs = lambda a: KM.to_torch(a, device).reshape(-1, spec.w)
+        return KmerTable(spec, bool(z["stranded"]), limbs(z["kmers"]), col(z["exts"]),
+                         col(z["counts"]), col(z["data"]),
+                         all_kmers=limbs(z["all_kmers"]) if "all_kmers" in z else None)
 
 
 def obs_row_words(w: int) -> int:

@@ -1,24 +1,27 @@
-"""Compressed De Bruijn graph: unitig store, link table, re-compression.
+"""Compressed De Bruijn graph: unitig store, link table, walks, exports,
+checkpoints and re-compression.
 
-Counterpart of ``tpu_debruijn/graph.py`` (rust-debruijn's graph.rs) for the
-quick start, the shard merge and tip cleaning.  ``BaseGraph`` is the unitig
-store, with an optional sidecar of per-node payload objects (``rich``);
-``DebruijnGraph`` adds the sorted end-kmer indexes, resolves every
-candidate link of the graph (graph.rs:223-291) in one batched search on the
-device, walks edges (``Node``, ``find_edges``) and repairs extensions
-(``fix_exts``).  :func:`compress_graph` merges unbranched nodes
-(compression.rs:291-349) with the kmer-level machinery: node partners by
-searches on the device, then ``compress.link_chains`` (``rank_lists``).
-
-Not ported yet: walks and exports beyond GFA (``max_path``,
-``sequence_of_path``, dot/JSON), save/load, ``Node.sequence`` and
-``iter_kmers`` (they wait for ``dna.DnaSeq``).
+Counterpart of ``tpu_debruijn/graph.py`` (rust-debruijn's graph.rs).
+``BaseGraph`` is the unitig store, with an optional sidecar of per-node
+payload objects (``rich``); ``DebruijnGraph`` adds the sorted end-kmer
+indexes, resolves every candidate link of the graph (graph.rs:223-291) in
+one batched search on the device and keeps the result on the host: edges
+(``Node``, ``find_edges``), extension repair (``fix_exts``), the
+``is_compressed`` check, walks (``max_path``, ``max_path_beam``,
+``sequence_of_path``), exports (GFA, dot, JSON) and ``save``/``load`` all
+read those numpy arrays, with no device read a step.
+:func:`compress_graph` merges unbranched nodes (compression.rs:291-349)
+with the kmer-level machinery: node partners by searches on the device,
+then ``compress.link_chains`` (``rank_lists``).
 """
 
 from __future__ import annotations
 
 import io as _io
-from typing import Callable, List, Optional, Sequence
+import json
+import pickle
+from collections import deque
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +31,8 @@ from tpu_debruijn_torch import compress as C
 from tpu_debruijn_torch import exts as E
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
-from tpu_debruijn_torch.dna import PackedSeqSet
+from tpu_debruijn_torch.dna import DnaSeq, PackedSeqSet
+from tpu_debruijn_torch.exts import Exts
 from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kmer import KmerSpec
 
@@ -87,8 +91,16 @@ class BaseGraph:
         self._consolidate()
         return self._data
 
+    @data.setter
+    def data(self, value) -> None:
+        self._consolidate()
+        self._data = np.asarray(value, np.int32)
+
     def __len__(self):
         return len(self.sequences)
+
+    def is_empty(self) -> bool:
+        return len(self) == 0
 
     def add(self, bases, exts: int, data: int = 0, rich=None) -> None:
         n_before = len(self)
@@ -260,6 +272,9 @@ class DebruijnGraph:
         self._rk_ids = order_r
         self._links = None  # where each extension lands: independent of exts
         self._edges = None
+        self._lists = None  # the edges as flat host lists, by (node, dir)
+        self._lk_bytes = None  # byte keys of the sorted end kmers, for search_kmer
+        self._rk_bytes = None
 
     @staticmethod
     def _sort_ids(kmers: np.ndarray) -> np.ndarray:
@@ -269,6 +284,9 @@ class DebruijnGraph:
 
     def __len__(self):
         return len(self.base)
+
+    def is_empty(self) -> bool:
+        return len(self) == 0
 
     def get_node(self, node_id: int) -> "Node":
         return Node(node_id, self)
@@ -302,13 +320,71 @@ class DebruijnGraph:
             self._edges = (t, s, f, found & has)
         return self._edges
 
+    def _edge_lists(self):
+        """The edge table as host lists for walks and exports: the edges
+        leaving node v in direction d are entries ``off[2 v + d]`` to
+        ``off[2 v + d + 1]`` of ``(target, side, flip)``, bases ascending.
+        Built in one vectorized pass; rebuilt when ``exts`` changes."""
+        if self._lists is None:
+            t, s, f, ex = self._edge_table()
+            off = np.zeros(2 * len(self) + 1, np.int64)
+            np.cumsum(ex.reshape(-1, 4).sum(1), out=off[1:])
+            self._lists = (off.tolist(), t[ex].tolist(), s[ex].tolist(), f[ex].tolist())
+        return self._lists
+
     def find_edges(self, node_id: int, d: int) -> List[tuple]:
         """The edges leaving ``node_id`` in direction ``d`` (graph.rs:223-241)
         as (target, side entered, flipped); an extension to no node (out of
         the shard) is skipped."""
-        t, s, f, ex = self._edge_table()
-        return [(int(t[node_id, d, b]), int(s[node_id, d, b]), bool(f[node_id, d, b]))
-                for b in range(4) if ex[node_id, d, b]]
+        off, t, s, f = self._edge_lists()
+        lo, hi = off[2 * node_id + d], off[2 * node_id + d + 1]
+        return list(zip(t[lo:hi], s[lo:hi], f[lo:hi]))
+
+    @staticmethod
+    def _byte_keys(arr: np.ndarray) -> np.ndarray:
+        """(n, w) uint32 limbs -> (n,) fixed-width big-endian byte keys,
+        whose order is the limbs' lexicographic order."""
+        w = arr.shape[1]
+        return np.ascontiguousarray(arr.astype(">u4")).view(f"S{4 * w}").ravel()
+
+    def search_kmer(self, kmer_limbs, side: int) -> Optional[int]:
+        """graph.rs:244-249: the node whose ``side`` end kmer is
+        ``kmer_limbs`` ((W,) limbs), or None; a host binary search."""
+        arr, ids = (self._lk_sorted, self._lk_ids) if side == LEFT else (self._rk_sorted, self._rk_ids)
+        if len(arr) == 0:
+            return None
+        if side == LEFT:
+            if self._lk_bytes is None:
+                self._lk_bytes = self._byte_keys(arr)
+            keys = self._lk_bytes
+        else:
+            if self._rk_bytes is None:
+                self._rk_bytes = self._byte_keys(arr)
+            keys = self._rk_bytes
+        # numpy's S dtype strips trailing NULs but compares NUL-padded, so
+        # both sides through the same conversion keep limb order
+        q = np.asarray(np.asarray(kmer_limbs, np.uint32).astype(">u4").tobytes(), dtype=keys.dtype)
+        lo = int(np.searchsorted(keys, q))
+        if lo < len(arr) and keys[lo] == q:
+            return int(ids[lo])
+        return None
+
+    def find_link(self, kmer_limbs, d: int):
+        """graph.rs:252-291 for one kmer, on the host: (node, side entered,
+        flipped) of the node ``kmer_limbs`` reaches moving in direction
+        ``d``, or None."""
+        if not self.stranded:
+            one = torch.from_numpy(np.asarray(kmer_limbs, np.uint32).astype(np.int64)[None])
+            rck = KM.to_numpy(KM.rc(self.spec, one))[0]
+        probe, other = (RIGHT, LEFT) if d == LEFT else (LEFT, RIGHT)
+        idx = self.search_kmer(kmer_limbs, probe)
+        if idx is not None:
+            return idx, probe, False
+        if not self.stranded:
+            idx = self.search_kmer(rck, other)
+            if idx is not None:
+                return idx, other, True
+        return None
 
     def get_valid_exts(self, node_id: int, valid: Optional[np.ndarray]) -> int:
         """The node's Exts byte keeping only edges onto ``valid`` nodes
@@ -331,41 +407,338 @@ class DebruijnGraph:
         self.exts = new
         self.base.exts = new
         self._edges = None
+        self._lists = None
+
+    # -- checks ----------------------------------------------------------
+    def is_compressed(self, join_test: Optional[Callable[[int, int], bool]] = None):
+        """graph.rs:296-334: a pair of nodes that could still merge, or
+        None.  Vectorized over the edge table, with the palindrome test on
+        the device; ``join_test`` runs only on the surviving pairs, in the
+        reference's (node, dir) order."""
+        n = len(self)
+        if n == 0:
+            return None
+        k = self.spec.k
+        t, s, _, ex = self._edge_table()
+        deg = ex.sum(axis=2)
+        b = np.argmax(ex, axis=2)
+        tgt = np.take_along_axis(t, b[:, :, None], axis=2)[:, :, 0]
+        rdir = np.take_along_axis(s, b[:, :, None], axis=2)[:, :, 0]
+        tgt_c = np.clip(tgt, 0, n - 1)
+        next_deg = deg[tgt_c, rdir]
+        # K-length palindromic nodes never merge (graph.rs:311-318)
+        node_len = np.asarray(self.base.sequences.length, np.int64)
+        pal = np.zeros(n, bool)
+        if k % 2 == 0 and (node_len == k).any():
+            pal_all = KM.is_palindrome(self.spec, KM.to_torch(self.first_kmers, self.device))
+            pal = (node_len == k) & pal_all.cpu().numpy()
+        cand = ((deg == 1) & (next_deg == 1) & ~pal[:, None] & ~pal[tgt_c]
+                & (tgt != np.arange(n)[:, None]))
+        if not cand.any():
+            return None
+        if join_test is None:
+            i0 = int(np.nonzero(cand.reshape(-1))[0][0])
+            return (i0 // 2, int(tgt.reshape(-1)[i0]))
+        for i0 in np.nonzero(cand.any(axis=1))[0]:
+            for d in (LEFT, RIGHT):
+                if cand[i0, d] and join_test(int(self.data[i0]), int(self.data[tgt[i0, d]])):
+                    return (int(i0), int(tgt[i0, d]))
+        return None
+
+    # -- paths -----------------------------------------------------------
+    def sequence_of_path(self, path: Sequence[Tuple[int, int]]) -> DnaSeq:
+        """graph.rs:471-491: the sequence of a node path, K - 1 overlaps
+        dropped; a node entered on its right side is reverse-complemented."""
+        k = self.spec.k
+        out = []
+        for idx, (node_id, d) in enumerate(path):
+            seq = self.base.sequences.get_bases(node_id)
+            if d == RIGHT:
+                seq = (3 - seq[::-1]).astype(np.uint8)
+            out.append(seq if idx == 0 else seq[k - 1 :])
+        return DnaSeq.from_bases(np.concatenate(out) if out else np.zeros(0, np.uint8))
+
+    def max_path(self, score: Callable, solid_path: Callable):
+        """Greedy bidirectional best-score walk (graph.rs:382-468): from the
+        best-scoring node, step to the best-scoring neighbour until a node
+        repeats or more than one neighbour is solid."""
+        if len(self) == 0:
+            return []
+        data = self.data.tolist()
+        scores = [score(d) for d in data]
+        best_node = int(np.argmax(scores))
+        osc = lambda st: 0.0 if st is None else scores[st[0]]
+        osolid = lambda st: False if st is None else solid_path(data[st[0]])
+        used = {best_node}
+        path = deque([(best_node, LEFT)])
+        for d, do_flip in ((LEFT, False), (RIGHT, True)):
+            current = (best_node, d)
+            while True:
+                nxt = None
+                cur_id, incoming = current
+                solid = 0
+                for tid, tdir, _ in self.find_edges(cur_id, 1 - incoming):
+                    cand = (tid, tdir)
+                    if osolid(cand):
+                        solid += 1
+                    if osc(cand) > osc(nxt):
+                        nxt = cand
+                if solid > 1 or nxt is None or nxt[0] in used:
+                    break
+                if do_flip:
+                    path.appendleft((nxt[0], 1 - nxt[1]))
+                else:
+                    path.append(nxt)
+                used.add(nxt[0])
+                current = nxt
+        return list(path)
+
+    def max_path_beam(self, beam: int, score: Callable, solid_path: Callable):
+        """Beam search from the terminal nodes (graph.rs:712-841); returns
+        the best path as [(node, side entered)].
+
+        The JAX package's path and its order: states sorted stably by
+        score, scores summed in the same order, and a graph with no
+        terminal node seeded with (node 0, LEFT).  A state is one entry of
+        a tree of path entries (node, side, parent, depth, jump pointer),
+        not a copied list, so an extension costs the same at any path
+        length: the cycle test asks whether one of the target's few entries
+        is an ancestor of the state, a level-ancestor query over the jump
+        pointers in O(log depth), and the path is read out once at the end.
+        """
+        n = len(self)
+        if n == 0:
+            return []
+        ACTIVE, END, CYCLE = 0, 1, 2
+        data = self.data.tolist()
+        off, tgt, side, _ = self._edge_lists()
+        node, dirn, par, dep, jmp = [], [], [], [], []
+        entries = {}  # node id -> its tree entries
+
+        def push(p: int, v: int, d: int) -> int:
+            e = len(node)
+            if p < 0:
+                j, depth = e, 0
+            else:
+                # Myers' skew-binary jump pointers: O(log depth) level ancestors
+                j1 = jmp[p]
+                j = jmp[j1] if dep[p] - dep[j1] == dep[j1] - dep[jmp[j1]] else p
+                depth = dep[p] + 1
+            node.append(v)
+            dirn.append(d)
+            par.append(p)
+            dep.append(depth)
+            jmp.append(j)
+            entries.setdefault(v, []).append(e)
+            return e
+
+        def on_path(x: int, e: int) -> bool:
+            """Whether entry ``x`` is entry ``e`` or one of its ancestors."""
+            dx = dep[x]
+            if dep[e] < dx:
+                return False
+            while dep[e] > dx:
+                e = jmp[e] if dep[jmp[e]] >= dx else par[e]
+            return e == x
+
+        states = []
+        for i, e in enumerate(self.exts.tolist()):
+            nl, nr = E.num_ext_dir(e, LEFT), E.num_ext_dir(e, RIGHT)
+            if nl == 0 or nr == 0:
+                d = RIGHT if nl > 0 else LEFT
+                status = END if (nl == 0 and nr == 0) else ACTIVE
+                states.append((push(-1, i, d), float(score(data[i])), status))
+        if not states:
+            # no terminal node (a fully cyclic graph): the reference seeds
+            # the beam with (node 0, Left) too (graph.rs:752-762)
+            states.append((push(-1, 0, LEFT), float(score(data[0])), ACTIVE))
+        active = True
+        while active:
+            new_states = []
+            active = False
+            for st in states:
+                e, sc, status = st
+                if status != ACTIVE:
+                    new_states.append(st)
+                    continue
+                active = True
+                o = 2 * node[e] + 1 - dirn[e]
+                for tid, tin in zip(tgt[off[o] : off[o + 1]], side[off[o] : off[o + 1]]):
+                    nsc = sc + float(score(data[tid]))
+                    if any(on_path(x, e) for x in entries.get(tid, ())):
+                        to = CYCLE
+                    elif off[2 * tid + 1 - tin] == off[2 * tid + 2 - tin]:
+                        to = END
+                    else:
+                        to = ACTIVE
+                    new_states.append((push(e, tid, tin), nsc, to))
+            new_states.sort(key=lambda s: -s[1])
+            states = new_states[:beam]
+        path = []
+        e = states[0][0]
+        while e >= 0:
+            path.append((node[e], dirn[e]))
+            e = par[e]
+        return path[::-1]
+
+    # -- exports (graph.rs:493-710) --------------------------------------
+    def _seq_strings(self) -> List[str]:
+        """Every node's sequence as a string, from one pass over the store."""
+        flat = B.bases_to_ascii(self.base.sequences._flat()).decode()
+        starts = self.base.sequences.start.tolist()
+        return [flat[s : s + ln] for s, ln in zip(starts, self.base.sequences.length.tolist())]
+
+    def _write_gfa_text(self, w, tag_func) -> None:
+        """GFA text, one S line a node (``tag_func(node)`` appended when
+        given) and its L lines, as the JAX package's ``_node_to_gfa``."""
+        off, tgt, side, _ = self._edge_lists()
+        k1 = self.spec.k - 1
+        w.write("H\tVN:Z:tpu-debruijn\n")
+        for i, seq in enumerate(self._seq_strings()):
+            if tag_func is not None:
+                w.write(f"S\t{i}\t{seq}\t{tag_func(self.get_node(i))}\n")
+            else:
+                w.write(f"S\t{i}\t{seq}\n")
+            # a link is written once: from its lower node, a self-link from the left side
+            for d, mark, first in ((LEFT, "-", i), (RIGHT, "+", i + 1)):
+                for j in range(off[2 * i + d], off[2 * i + d + 1]):
+                    if tgt[j] >= first:
+                        to_dir = "+" if side[j] == LEFT else "-"
+                        w.write(f"L\t{i}\t{mark}\t{tgt[j]}\t{to_dir}\t{k1}M\n")
+
+    def write_gfa(self, w) -> None:
+        """GFA text to the writer ``w``; the same bytes as :meth:`to_gfa`."""
+        self._write_gfa_text(w, None)
+
+    def to_gfa_with_tags(self, path, tag_func) -> None:
+        """GFA with ``tag_func(node)`` appended to each S line."""
+        with open(path, "w") as f:
+            self._write_gfa_text(f, tag_func)
 
     def to_gfa(self, path) -> None:
-        """GFA export, byte-identical to the JAX package's."""
-        n = len(self)
-        flat_ascii = B.bases_to_ascii(self.base.sequences._flat())
-        starts = np.asarray(self.base.sequences.start, np.int64)
-        lens = np.asarray(self.base.sequences.length, np.int64)
-        t, s, f, ex = self._edge_table()
-        k1 = str(self.spec.k - 1).encode()
-        buf = _io.BytesIO()
-        buf.write(b"H\tVN:Z:tpu-debruijn\n")
-        mv = memoryview(flat_ascii)
-        for i in range(n):
-            buf.write(b"S\t%d\t" % i)
-            buf.write(mv[starts[i] : starts[i] + lens[i]])
-            buf.write(b"\n")
-            for b in range(4):
-                if ex[i, LEFT, b]:
-                    tgt = int(t[i, LEFT, b])
-                    if tgt >= i:
-                        d = b"+" if s[i, LEFT, b] == LEFT else b"-"
-                        buf.write(b"L\t%d\t-\t%d\t%s\t%sM\n" % (i, tgt, d, k1))
-            for b in range(4):
-                if ex[i, RIGHT, b]:
-                    tgt = int(t[i, RIGHT, b])
-                    if tgt > i:
-                        d = b"+" if s[i, RIGHT, b] == LEFT else b"-"
-                        buf.write(b"L\t%d\t+\t%d\t%s\t%sM\n" % (i, tgt, d, k1))
+        """GFA export to ``path``, the JAX package's bytes."""
+        w = _io.StringIO()
+        self._write_gfa_text(w, None)
         with open(path, "wb") as fh:
-            fh.write(buf.getvalue())
+            fh.write(w.getvalue().encode())
+
+    def to_dot(self, path, node_label: Callable[[int], str]) -> None:
+        """Graphviz dot: one node a unitig labelled by ``node_label(data)``,
+        blue edges into left sides, red into right sides."""
+        off, tgt, side, _ = self._edge_lists()
+        lens = self.base.sequences.length.tolist()
+        data = self.data.tolist()
+        with open(path, "w") as f:
+            f.write("digraph {\n")
+            for i in range(len(self)):
+                f.write(f'n{i} [label="id:{i} len:{lens[i]}  {node_label(data[i])}",style=filled]\n')
+                for j in range(off[2 * i], off[2 * i + 1]):
+                    color = "blue" if side[j] == LEFT else "red"
+                    f.write(f"n{tgt[j]} -> n{i} [color={color}]\n")
+                for j in range(off[2 * i + 1], off[2 * i + 2]):
+                    color = "blue" if side[j] == LEFT else "red"
+                    f.write(f"n{i} -> n{tgt[j]} [color={color}]\n")
+            f.write("}\n")
+
+    def to_json_rest(self, fmt_func, writer, rest: Optional[dict] = None) -> None:
+        """Nodes (id, length, ``fmt_func(data)``, sequence) and right-side
+        links as JSON to ``writer``, with the entries of ``rest`` after."""
+        off, tgt, side, _ = self._edge_lists()
+        lens = self.base.sequences.length.tolist()
+        data = self.data.tolist()
+        n = len(self)
+        writer.write('{\n"nodes": [\n')
+        for i, seq in enumerate(self._seq_strings()):
+            writer.write('{"id":"%d","L":%d,"D":%s,"Se":"%s"}'
+                         % (i, lens[i], json.dumps(fmt_func(data[i])), seq))
+            writer.write("\n" if i == n - 1 else ",\n")
+        writer.write('],\n"links": [\n')
+        writer.write(",\n".join(
+            '{"source":"%d","target":"%d","D":"%s"}' % (i, tgt[j], "L" if side[j] == LEFT else "R")
+            for i in range(n) for j in range(off[2 * i + 1], off[2 * i + 2])))
+        writer.write("\n]")
+        if rest:
+            for key, val in rest.items():
+                writer.write(',\n"%s": %s\n' % (key, json.dumps(val)))
+        else:
+            writer.write("\n")
+        writer.write("}\n")
+
+    def to_json(self, fmt_func, writer) -> None:
+        self.to_json_rest(fmt_func, writer, None)
+
+    def print(self) -> None:
+        print(f"DebruijnGraph {{ len: {len(self)}, K: {self.spec.k} }} :")
+        for node in self.iter_nodes():
+            print(node)
+
+    def print_with_data(self) -> None:
+        print(f"DebruijnGraph {{ len: {len(self)}, K: {self.spec.k} }} :")
+        for node in self.iter_nodes():
+            print(node, f"({int(self.data[node.node_id])})")
+
+    # -- checkpoint (graph.rs:43,175 Serialize) --------------------------
+    def save(self, path) -> None:
+        """Checkpoint the graph as the JAX package's npz: ``k``,
+        ``stranded``, ``lengths``, 2-bit ``bases_packed`` words, int32
+        ``exts`` and ``data``.  A ``rich`` sidecar of int sequences is
+        stored as ``rich_flat``/``rich_split`` arrays; any other payload is
+        pickled into a uint8 ``rich_pickle`` array."""
+        extra = {}
+        if self.rich is not None:
+            def _int_seq(r):
+                try:
+                    return all(isinstance(x, (int, np.integer)) for x in r)
+                except TypeError:
+                    return False
+
+            if all(r is None or _int_seq(r) for r in self.rich):
+                flats, split = [], np.zeros(len(self) + 1, np.int64)
+                for i, r in enumerate(self.rich):
+                    flats.append(np.asarray(list(() if r is None else r), np.int64))
+                    split[i + 1] = split[i] + len(flats[-1])
+                extra["rich_flat"] = np.concatenate(flats) if flats else np.zeros(0, np.int64)
+                extra["rich_split"] = split
+            else:
+                extra["rich_pickle"] = np.frombuffer(pickle.dumps(list(self.rich), protocol=4),
+                                                     dtype=np.uint8)
+        np.savez_compressed(
+            path,
+            k=self.spec.k,
+            stranded=self.stranded,
+            lengths=np.asarray(self.base.sequences.length, np.int64),
+            bases_packed=self.base.sequences.packed_words(),
+            exts=np.asarray(self.exts, np.int32),
+            data=np.asarray(self.data, np.int32),
+            **extra,
+        )
+
+    @staticmethod
+    def load(path, device="cuda") -> "DebruijnGraph":
+        """A checkpoint of :meth:`save` or of the JAX package's, links
+        resolved on ``device``; also the legacy unpacked ``bases`` form.
+        A ``rich_pickle`` sidecar is unpickled: load only files this
+        program wrote."""
+        z = np.load(path)
+        g = BaseGraph(int(z["k"]), bool(z["stranded"]))
+        rich = None
+        if "rich_pickle" in z:
+            rich = pickle.loads(z["rich_pickle"].tobytes())
+        elif "rich_flat" in z:
+            flat, split = z["rich_flat"].tolist(), z["rich_split"].tolist()
+            rich = [tuple(flat[split[i] : split[i + 1]]) for i in range(len(split) - 1)]
+        if "bases_packed" in z:
+            g.sequences = PackedSeqSet.from_packed(z["bases_packed"], z["lengths"])
+            g._exts_chunks.append(np.asarray(z["exts"], np.int32))
+            g._data_chunks.append(np.asarray(z["data"], np.int32))
+            g._rich = rich
+        else:
+            g.add_flat(z["bases"], z["lengths"], z["exts"], z["data"], rich=rich)
+        return g.finish(device=device)
 
 
 class Node:
-    """View of one node (graph.rs:1009-1093).  ``exts()`` is the Exts byte
-    as an int; ``sequence()`` and ``iter_kmers()`` wait for ``dna.DnaSeq``."""
+    """View of one node (graph.rs:1009-1093)."""
 
     def __init__(self, node_id: int, graph: DebruijnGraph):
         self.node_id = node_id
@@ -374,11 +747,14 @@ class Node:
     def len(self) -> int:
         return int(self.graph.base.sequences.length[self.node_id])
 
+    def sequence(self) -> DnaSeq:
+        return self.graph.base.sequences.get(self.node_id)
+
     def data(self) -> int:
         return int(self.graph.data[self.node_id])
 
-    def exts(self) -> int:
-        return int(self.graph.exts[self.node_id])
+    def exts(self) -> Exts:
+        return Exts(int(self.graph.exts[self.node_id]))
 
     def l_edges(self):
         return self.graph.find_edges(self.node_id, LEFT)
@@ -389,8 +765,11 @@ class Node:
     def edges(self, d: int):
         return self.graph.find_edges(self.node_id, d)
 
+    def iter_kmers(self):
+        return self.sequence().iter_kmers(self.graph.spec.k)
+
     def __repr__(self):
-        return (f"Node {{ id:{self.node_id}, Exts: {self.exts():#04x}, "
+        return (f"Node {{ id:{self.node_id}, Exts: {self.exts()}, "
                 f"L:{self.l_edges()} R:{self.r_edges()}, Seq: {self.len()} }}")
 
 

@@ -76,7 +76,7 @@ class ShardPlan:
         return 2 * self.k - self.p  # msp.rs:292 bound
 
 
-class _Stages:
+class Stages:
     """Host seconds by stage into ``stats`` (a dict; None times nothing).
     A timed stage starts and ends with a device synchronize."""
 
@@ -160,7 +160,7 @@ def _empty_chains(device) -> C.Chains:
                     last_item=z, first_flip=z, last_flip=z)
 
 
-def _shard_step(plan: ShardPlan, sub, slen, sexts, slab, data_reduce, stages: _Stages):
+def _shard_step(plan: ShardPlan, sub, slen, sexts, slab, data_reduce, stages: Stages):
     """One shard's count (with ``min_obs > 1``, the repair of extensions onto
     kmers censored in this shard's own census) and compression: (table,
     chains, unitig exts, contributed bases).  A shard with no interval or no
@@ -273,7 +273,7 @@ def sharded_tables(
     """
     mesh = _mesh(mesh, device)
     dev, n_shards = mesh.device, mesh.n_shards
-    stages = _Stages(stats, dev)
+    stages = Stages(stats, dev)
     items = [np.asarray(s, np.uint8) for s in reads if len(s) >= k]
     if not items:
         raise ValueError("no reads of length >= k")
@@ -342,7 +342,7 @@ def assemble_sharded(
     """
     mesh = _mesh(mesh, device)
     dev = mesh.device
-    stages = _Stages(stats, dev)
+    stages = Stages(stats, dev)
     out = sharded_tables(reads, k, p, stranded=stranded, min_obs=min_obs, mesh=mesh,
                          labels=labels, slack=slack, cap_per_dest=cap_per_dest,
                          stitch=collective, permutation=permutation, device=device, stats=stats)
