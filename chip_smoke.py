@@ -136,6 +136,20 @@ Phases; any failure raises and the script exits non-zero:
    the count of table kmers with an HD-1 neighbour in the table.  Phase 6
    also holds the command line CUDA == CPU (cli_outputs: GFA and JSON
    bytes, both walks, both checkpoints' arrays).
+11. The sharded path over several processes: phase 3's reads written to 4
+   FASTQ files and assembled by parallel.assemble_multihost in two worker
+   processes on the card (fresh interpreters importing only the port;
+   gloo, since NCCL refuses two processes on one card; an 8-shard
+   global_mesh, so each process reads 2 files and counts 4 shards), and by
+   assemble_multiprocess in one worker under NCCL (a group of one, which
+   still runs the all_to_all_single exchange and the all_gathers).  Checks:
+   both ranks' GFA bytes equal, equal to phase 9's assemble_sharded and to
+   the NCCL run's; each rank read files r, r + 2; the union of the ranks'
+   shard tables equals phase 3's table as in phase 9.  Launches are
+   counted in each worker over its assemble_multihost call and summed over
+   the ranks ("multiprocess"); prints each rank's stage seconds, peak
+   device memory, bytes exchanged and gathered, shard unitigs and wall
+   time, beside phase 9's one-process call.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1737,10 +1751,11 @@ def rich_sharded(rich_reads, mesh, device) -> dict:
 
 
 def phase_sharded(reads, table_main: dict, nodes_main, peak_main: int, rich_reads, counters,
-                  smi: str, device="cuda") -> dict:
+                  smi: str, gfa_path: str, device="cuda") -> dict:
     """Phase 9: the MSP-sharded path at full width, phase 3's reads over 8
     logical shards (k = 31, p = 8, min_obs = 2); launches counted over one
-    assemble_sharded call with the device stitch (path "sharded")."""
+    assemble_sharded call with the device stitch (path "sharded"), whose
+    graph is written to ``gfa_path`` for phase 11."""
     from tpu_debruijn_torch import filter as F
     from tpu_debruijn_torch import msp as TM
     from tpu_debruijn_torch import parallel as TP
@@ -1770,6 +1785,7 @@ def phase_sharded(reads, table_main: dict, nodes_main, peak_main: int, rich_read
            "peak_device_bytes": peak, "peak_device_bytes_quick_start": peak_main}
     rows = node_rows(graph)
     check([r[0] for r in rows] == canon_seqs(nodes_main), "phase 9: sharded unitigs != phase 3's")
+    graph.to_gfa(gfa_path)
     stats_h = {}
     host, out["assemble_sharded_host_stitch_s"] = timed(
         lambda st: TP.assemble_sharded(reads, K, P_MSP, collective=False, stats=st, **kw), stats_h)
@@ -2169,6 +2185,228 @@ def phase_cli(genome, strains, reads, rich_reads, counters, smi: str, tmp: str, 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded path over several processes
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MP_FILES = 4  # phase 11's FASTQ files, two a process
+MP_TIMEOUT = 300  # seconds a collective waits for a process before it raises
+MP_WAIT = 900  # seconds a run of workers may take in all
+# chip_smoke's name of each launch counter -> the wrapper in tpu_debruijn_torch.kernels
+COUNTERS = {
+    "canonical": "canonicalize", "extract_canonical": "extract_canonical",
+    "gather_rows": "gather_rows", "take_along_axis": "take_along_axis",
+    "successor_walk": "successor_walk", "rank_loop": "rank_loop", "rank_lists": "rank_lists",
+}
+
+MP_WORKER = r'''
+"""One process of chip_smoke.start_workers: argv = repo root, spec file, rank.
+Imports the port and nothing of JAX; runs each case of the spec ("repeat"
+times, recording the last) and writes its GFA (and for "tables" its shard
+tables) and a JSON record."""
+import datetime, json, sys, time
+
+root, spec_path, rank = sys.argv[1], sys.argv[2], int(sys.argv[3])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(2)
+from tpu_debruijn_torch import kernels as KN
+from tpu_debruijn_torch import parallel as TP
+from tpu_debruijn_torch.io import read_fastx
+
+with open(spec_path) as f:
+    spec = json.load(f)
+world, dev = spec["world"], spec["device"]
+if world > 1:
+    TP.initialize(spec["init"], world, rank, backend=spec["backend"], timeout=spec["timeout"])
+else:  # initialize does nothing for one process: a group of one by hand
+    dist.init_process_group(spec["backend"], init_method=spec["init"], world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=spec["timeout"]))
+cuda = torch.device(dev).type == "cuda"
+# the first collective sets up the communicators: not a case's time
+dist.all_reduce(torch.zeros(1, device="cpu" if dist.get_backend() == "gloo" else dev))
+kw = dict(stranded=False, min_obs=spec["min_obs"], device=dev)
+record = {"rank": rank, "backend": dist.get_backend(), "cases": {}}
+for case in [c for c in spec["cases"] for _ in range(c.get("repeat", 1))]:
+    name, out = case["name"], {}
+    for attr in spec["counters"].values():
+        getattr(KN, attr).launches = 0
+    KN.rank_lists.round_path = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    if case["entry"] == "multihost":
+        graph = TP.assemble_multihost(case["files"], spec["k"], spec["p"], stats=stats,
+                                      **case.get("kwargs", {}), **kw)
+    elif case["entry"] == "multiprocess":
+        lo, hi, step = case["slices"][rank]
+        reads = np.load(case["reads"])[lo:hi:step]
+        t0 = time.perf_counter()
+        graph = TP.assemble_multiprocess(reads, spec["k"], spec["p"], stats=stats,
+                                         **case.get("kwargs", {}), **kw)
+    else:  # "tables": this process's shard tables of its files' reads
+        reads = [r for path in TP.local_read_slice(case["files"]) for r in read_fastx(path)]
+        out["read_s"] = time.perf_counter() - t0
+        _, tables, *_ = TP.sharded_tables(reads, spec["k"], spec["p"], stats=stats,
+                                          mesh=TP.global_mesh(device=dev), **kw)
+        np.savez(f"{spec['out']}/{name}_{rank}.npz", **{
+            f"{col}_{s}": getattr(t, col).cpu().numpy()
+            for s, t in enumerate(tables) for col in ("kmers", "exts", "counts")})
+        graph = None
+    if cuda:
+        torch.cuda.synchronize()
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {n: getattr(KN, attr).launches for n, attr in spec["counters"].items()}
+    out["launches"]["rank_lists.round_path"] = KN.rank_lists.round_path
+    out["stats"] = stats
+    if "files" in case:
+        out["slice"] = TP.local_read_slice(case["files"])
+    if graph is not None:
+        out["nodes"] = len(graph)
+        graph.to_gfa(f"{spec['out']}/{name}_{rank}.gfa")
+    record["cases"][name] = out
+dist.destroy_process_group()
+with open(f"{spec['out']}/record_{rank}.json", "w") as f:
+    json.dump(record, f)
+'''
+
+
+def start_workers(spec: dict, tmp: str) -> list:
+    """Start ``spec["world"]`` fresh processes of MP_WORKER (``sys.executable``,
+    importing only the port), joined by a file rendezvous in ``tmp``; their
+    outputs go to ``spec["out"]`` (made here)."""
+    os.makedirs(spec["out"], exist_ok=True)
+    worker = os.path.join(tmp, "mp_worker.py")
+    with open(worker, "w") as f:
+        f.write(MP_WORKER)
+    spec = {"counters": COUNTERS, "init": "file://" + os.path.join(spec["out"], "rendezvous"),
+            **spec}
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return [subprocess.Popen([sys.executable, worker, ROOT, path, str(r)], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(spec["world"])]
+
+
+def wait_workers(procs, out: str, timeout: float) -> list:
+    """Each rank's JSON record, once every worker has ended; a worker that
+    fails, or outlasts ``timeout`` seconds, fails the run, and none is left
+    running."""
+    deadline = time.monotonic() + timeout
+    try:
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"worker {r} exited {p.returncode}:\n{text[-4000:]}")
+    records = []
+    for r in range(len(procs)):
+        with open(os.path.join(out, f"record_{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def rank_summary(case: dict) -> dict:
+    """One rank's numbers of one case, for the phase's line."""
+    stats = case["stats"]
+    out = {key: case[key] for key in ("wall_s", "read_s", "peak_device_bytes", "nodes")
+           if key in case}
+    for key in ("exchange_bytes", "gather_bytes", "shard_unitigs"):
+        out[key] = stats.get(key)
+    out["stages"] = stage_summary({k: v for k, v in stats.items() if k.endswith("_s")})
+    return out
+
+
+def phase_multiprocess(reads, table_main: dict, sharded_gfa: bytes, sharded_s: float, smi: str,
+                       tmp: str, device="cuda") -> dict:
+    """Phase 11: phase 3's reads in 4 FASTQ files, assembled by
+    assemble_multihost in two worker processes on the card (gloo, an
+    8-shard global mesh, 4 shards and 2 files a process), and by
+    assemble_multiprocess in one worker under NCCL (a group of one, the
+    collectives run all the same).  Checks: both ranks' GFA bytes equal,
+    and equal to phase 9's assemble_sharded and to the NCCL run; the union
+    of the ranks' shard tables equals phase 3's table.  Launches are counted
+    in each worker over its assemble_multihost call and summed over the
+    ranks (path "multiprocess")."""
+    from types import SimpleNamespace
+
+    t_phase = time.perf_counter()
+    files = []
+    for i, part in enumerate(np.array_split(np.asarray(reads), MP_FILES)):
+        files.append(os.path.join(tmp, f"mp_{i}.fq"))
+        write_fastq(files[-1], part)
+    npy = os.path.join(tmp, "mp_reads.npy")
+    np.save(npy, np.asarray(reads))
+    torch.cuda.empty_cache()
+    base = dict(k=K, p=P_MSP, min_obs=2, device=device, timeout=MP_TIMEOUT)
+    out_a, out_b = os.path.join(tmp, "mp_gloo"), os.path.join(tmp, "mp_nccl")
+    t0 = time.perf_counter()
+    # the tables first: the timed assemble_multihost call finds the process warm
+    ranks = wait_workers(start_workers(dict(base, world=2, backend="gloo", out=out_a, cases=[
+        {"name": "tables", "entry": "tables", "files": files},
+        {"name": "multihost", "entry": "multihost", "files": files},
+    ]), tmp), out_a, MP_WAIT)
+    run_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = wait_workers(start_workers(dict(base, world=1, backend="nccl", out=out_b, cases=[
+        {"name": "nccl", "entry": "multiprocess", "reads": npy, "slices": [[0, None, 1]],
+         "repeat": 2},
+    ]), tmp), out_b, MP_WAIT)
+    run_b_s = time.perf_counter() - t0
+
+    gfa = [read_bytes(os.path.join(out_a, f"multihost_{r}.gfa")) for r in range(2)]
+    check(gfa[0] == gfa[1], "phase 11: the two ranks' graphs differ")
+    check(gfa[0] == sharded_gfa, "phase 11: two processes' graph != phase 9's assemble_sharded")
+    check(read_bytes(os.path.join(out_b, "nccl_0.gfa")) == sharded_gfa,
+          "phase 11: the NCCL run's graph != phase 9's assemble_sharded")
+    for r, rec in enumerate(ranks):
+        check(rec["cases"]["multihost"]["slice"] == files[r::2],
+              f"phase 11: rank {r} read {rec['cases']['multihost']['slice']}")
+    check(nccl["backend"] == "nccl", f"phase 11: run (b) ran on {nccl['backend']}")
+    tables = []
+    for r in range(2):
+        z = np.load(os.path.join(out_a, f"tables_{r}.npz"))
+        tables += [SimpleNamespace(**{col: torch.from_numpy(z[f"{col}_{s}"]).to(device)
+                                      for col in ("kmers", "exts", "counts")})
+                   for s in range(N_SHARDS // 2)]
+    differ = check_shard_tables("phase 11", tables, table_main)
+    del tables
+    launches = {}
+    for rec in ranks:
+        for name, n in rec["cases"]["multihost"]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"device": smi, "files": MP_FILES, "reads": len(reads), "k": K, "p": P_MSP,
+           "shards": N_SHARDS, "min_obs": 2, "exts_differ_from_one_batch": differ,
+           "assemble_sharded_s_phase_9": sharded_s,
+           "gloo_two_processes": {"run_s": run_a_s, "ranks": [
+               {"multihost": rank_summary(rec["cases"]["multihost"]),
+                "tables": rank_summary(rec["cases"]["tables"]),
+                "launches": rec["cases"]["multihost"]["launches"]} for rec in ranks]},
+           "nccl_one_process": {"run_s": run_b_s, **rank_summary(nccl["cases"]["nccl"]),
+                                "launches": nccl["cases"]["nccl"]["launches"]},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 11 (two processes, {smi}): ranks' GFA equal, == phase 9's and the NCCL run's; "
+        "shard tables == phase 3's; " + json.dumps(out))
+    out["launches"] = launches
+    return out
+
+
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
@@ -2296,12 +2534,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # every wrapper counts its launches; the kernels each path must launch
-    counters = {
-        "canonical": KN.canonicalize, "extract_canonical": KN.extract_canonical,
-        "gather_rows": KN.gather_rows, "take_along_axis": KN.take_along_axis,
-        "successor_walk": KN.successor_walk, "rank_loop": KN.rank_loop,
-        "rank_lists": KN.rank_lists,
-    }
+    counters = {name: getattr(KN, attr) for name, attr in COUNTERS.items()}
     on_path = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2347,15 +2580,22 @@ def main(argv=None) -> int:
         log("host vs device assembly: " + json.dumps({"device": smi, **assembly}))
 
         # phase 9: the MSP-sharded path at full width
+        sharded_gfa = os.path.join(tmp, "sharded.gfa")
         sharded = phase_sharded(reads, table_main, nodes_main, main["peak_device_bytes"],
-                                rich_reads, counters, smi)
+                                rich_reads, counters, smi, sharded_gfa)
         by_path["sharded"] = sharded.pop("launches")
-        del reads, nodes_main
+        del nodes_main
 
         # phase 10: the command line on phase 8's reads, and the graph API
         cli = phase_cli(genome, strains, reads8, rich_reads, counters, smi, tmp, args.seed)
         by_path["cli"] = cli.pop("launches")
         del reads8, labels8, rich_reads
+
+        # phase 11: the sharded path in two processes on the card
+        multi = phase_multiprocess(reads, table_main, read_bytes(sharded_gfa),
+                                   sharded["assemble_sharded_s"], smi, tmp)
+        by_path["multiprocess"] = multi.pop("launches")
+        del reads
 
         for path, launches in by_path.items():
             for name in on_path:

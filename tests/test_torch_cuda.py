@@ -462,6 +462,34 @@ def test_sharded_path_cuda_matches_cpu(cuda, k, tmp_path):
 
 
 @pytest.mark.cuda
+def test_two_processes_cuda_match_cpu(cuda, tmp_path):
+    """Two gloo processes on the card (assemble_multiprocess, an even split
+    of the reads over an 8-shard global mesh) give the same GFA bytes as two
+    on the CPU, and both equal one process's assemble_sharded."""
+    import chip_smoke
+    from tpu_debruijn_torch import parallel as TP
+
+    rng = np.random.default_rng(11)
+    reads = chip_smoke.sample_reads(rng, chip_smoke.make_genome(rng, 30_000, True), 30, 150)
+    npy = str(tmp_path / "reads.npy")
+    np.save(npy, reads)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / dev)
+        case = {"name": "even", "entry": "multiprocess", "reads": npy,
+                "slices": [[0, None, 2], [1, None, 2]]}
+        procs = chip_smoke.start_workers(dict(world=2, backend="gloo", device=dev, k=31, p=8,
+                                              min_obs=2, timeout=60, out=out, cases=[case]),
+                                         str(tmp_path))
+        chip_smoke.wait_workers(procs, out, 300)
+        got[dev] = [chip_smoke.read_bytes(f"{out}/even_{r}.gfa") for r in range(2)]
+    want = chip_smoke.gfa_of(TP.assemble_sharded(reads, 31, 8, min_obs=2, device="cuda"),
+                             str(tmp_path / "one.gfa"))
+    assert want.count(b"\nS\t") > 10
+    assert got["cuda"] == got["cpu"] == [want, want]
+
+
+@pytest.mark.cuda
 def test_compress_graph_cuda_matches_cpu(cuda, tmp_path):
     """compress_graph on the card equals the CPU's under a named and a
     closure reduce, the data join and censored nodes."""

@@ -95,13 +95,17 @@ def test_port_never_imports_jax():
         "from tpu_debruijn_torch import assemble, clean, compress, exts, filter, graph, kmer, msp, "
         "neighbors, parallel\n"
         "assert 'tpu_debruijn_torch.assemble' in names and 'tpu_debruijn_torch.neighbors' in names\n"
+        "assert 'tpu_debruijn_torch.parallel.multihost' in names, names\n"
+        "import tpu_debruijn_torch.parallel.multihost\n"
         "for mod, attrs in ((tpu_debruijn_torch, 'CompressionSpec SimpleCompress ScmapCompress "
         "compress_kmers_color_sets compress_kmers_rich compress_kmers_no_exts'), (compress, "
         "'assemble_unitigs_device compress_kmers_flat_device infer_exts_device'), (filter, "
         "'filter_kmers_set filter_kmers_set_arrays filter_kmers_eq_classes assign_eq_classes eq_class_ids "
         "CountFilterEqClass filter_kmers_with_summarizer remove_censored_exts_sharded'), "
         "(graph, 'from_flat_output compress_graph Node'), (parallel, 'sharded_tables "
-        "assemble_sharded make_mesh ShardPlan'), (msp, 'msp_intervals_device'), (clean, 'clean_tips'), "
+        "assemble_sharded make_mesh ShardPlan global_mesh initialize local_read_slice "
+        "assemble_multiprocess assemble_multihost LogicalMesh'), (parallel.multihost, 'initialize "
+        "local_read_slice global_mesh assemble_multiprocess assemble_multihost'), (msp, 'msp_intervals_device'), (clean, 'clean_tips'), "
         "(compress, 'stitch_flat'), (graph.DebruijnGraph, 'is_empty search_kmer find_link is_compressed "
         "sequence_of_path max_path max_path_beam write_gfa to_gfa_with_tags to_dot to_json_rest to_json "
         "print print_with_data save load'), (graph.Node, 'sequence iter_kmers'), (filter.KmerTable, "

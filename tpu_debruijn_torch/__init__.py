@@ -30,6 +30,15 @@ the MSP-sharded assembly on logical shards of one device,
          compress -> device stitch, or graph.compress_graph on the host)
     clean.clean_tips -> graph.compress_graph
 
+the same over several processes, one device each (``torch.distributed``:
+NCCL between cards, gloo on the CPU or for processes sharing a card),
+
+    parallel.initialize(addr, n, rank) -> parallel.global_mesh(8, device)
+        -> parallel.assemble_multiprocess(my_reads, k, p) or
+           parallel.assemble_multihost(paths, k, p)
+        (the exchange an all_to_all_single, the stitch's gathers all_gathers;
+         every process returns the same graph)
+
 the colored path and the policy layer,
 
     filter.filter_kmers_set_arrays -> compress_kmers_color_sets
@@ -63,16 +72,17 @@ checkpoints), ``compress`` (every policy; ``link_chains`` and
 ``link_chains_ordered``; unitig assembly on the host or on the device),
 ``dna`` (``DnaSeq``, ``DnaSeqBuilder``, ``SeqSlice``, ``PackedSeqSet``),
 ``graph``, ``msp`` (the minimizer scan and its host API), ``parallel``
-(``make_mesh``, ``ShardPlan``, ``sharded_tables``, ``assemble_sharded``),
+(``make_mesh``, ``ShardPlan``, ``sharded_tables``, ``assemble_sharded``;
+``multihost``: ``initialize``, ``local_read_slice``, ``global_mesh``,
+``assemble_multiprocess``, ``assemble_multihost``),
 ``clean`` (tips), ``convert`` (tables and graphs), ``assemble`` and the
 kernels in ``kernels/``: the two kmer kernels, the gathers and pointer
 jumps that replace the Pallas gather probes, among them the doubling loop
 of chain linking in one launch, and the ruling-set list ranking.
 
-Not ported yet: ``parallel.multihost`` (``assemble_multiprocess``,
-``initialize``, ``local_read_slice``: several processes).  The JAX
-package's static-shape machinery has no counterpart by design: see
-ROADMAP.md section 1 for each such name and where the port does its work.
+The JAX package's static-shape machinery has no counterpart by design:
+see ROADMAP.md section 1 for each such name and where the port does its
+work.
 """
 
 from tpu_debruijn_torch import bases

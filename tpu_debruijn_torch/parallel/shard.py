@@ -10,7 +10,8 @@ compression per bucket -> BaseGraph::combine -> compress_graph.
    as JAX takes it.
 2. **Exchange** (:func:`exchange`, JAX's ``all_to_all``): one stable
    partition of every interval by destination, so a shard's intervals
-   arrive in source order and then interval order.
+   arrive in source order and then interval order.  Over several processes
+   (a distributed mesh) the intervals first cross by ``all_to_all_single``.
 3. **Count and compress** each shard in turn (:func:`_shard_step`): the
    count, with ``min_obs > 1`` the censored-extension repair against the
    shard's own census (cross-shard unknowns survive), and the kmer-level
@@ -19,7 +20,10 @@ compression per bucket -> BaseGraph::combine -> compress_graph.
    unitig ends gathered by :func:`gather_ends`, JAX's ``all_gather``;
    fix_exts against every node, node-level partners and ``link_chains``,
    and the closing fix_exts), or on the host through
-   ``graph.compress_graph`` (``collective=False``).
+   ``graph.compress_graph`` (``collective=False``).  Over several processes
+   every process gathers every shard's ends and unitigs
+   (:func:`gather_ends`, :func:`gather_unitigs`, ``all_gather``) and runs
+   the stitch itself, so all of them return the same graph.
 
 The JAX package sizes static buffers for ``shard_map``; none of that is
 ported: no ``cap_per_dest`` or ``slack`` (accepted and unused), no padded
@@ -33,11 +37,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_debruijn_torch import compress as C
 from tpu_debruijn_torch import filter as F
@@ -121,20 +127,130 @@ def _scan_source(plan: ShardPlan, bases, lengths, labels, permutation):
             _dest(iv["bucket"], plan.n_shards))
 
 
-def exchange(dest: torch.Tensor, n_shards: int, columns: Sequence[torch.Tensor]) -> list:
+def exchange(dest: torch.Tensor, n_shards: int, columns: Sequence[torch.Tensor],
+             mesh: Optional[LogicalMesh] = None, stats: Optional[dict] = None) -> list:
     """The exchange (JAX's ``all_to_all``): rows of ``columns`` by
     destination shard, by one stable partition over the batch in read
-    order.  Returns one list of columns a shard."""
+    order.  Returns one list of columns a shard.
+
+    On a distributed ``mesh`` the rows first cross processes: the (world,)
+    row counts by one ``all_to_all_single``, then every column packed into
+    one byte row an interval by a second, split by destination process; the
+    rows that arrive (in source process order, each in its own read order)
+    are partitioned over this process's shards (``mesh.local``).  ``stats``
+    then receives ``exchange_bytes``, the bytes sent to other processes."""
+    if mesh is not None and mesh.distributed:
+        return _exchange_across(dest, columns, mesh, stats)
     order = torch.argsort(dest, stable=True)
     counts = torch.bincount(dest, minlength=n_shards).tolist()
     moved = [torch.split(c[order], counts) for c in columns]
     return [[m[s] for m in moved] for s in range(n_shards)]
 
 
-def gather_ends(parts: Sequence[tuple]) -> tuple:
+def _comm_device(mesh: LogicalMesh) -> torch.device:
+    """Where a collective's tensors lie: the host under gloo (which stages a
+    card's tensors through the host in any case), else the mesh's device."""
+    return torch.device("cpu") if dist.get_backend() == "gloo" else mesh.device
+
+
+def _byte_rows(columns: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Columns of n rows each as one (n, bytes a row) uint8 matrix."""
+    n = columns[0].shape[0]
+    return torch.cat([c.contiguous().view(torch.uint8).reshape(n, _row_bytes(c))
+                      for c in columns], 1)
+
+
+def _row_bytes(c: torch.Tensor) -> int:
+    return c.element_size() * math.prod(c.shape[1:])
+
+
+def _from_byte_rows(rows: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
+    """Inverse of :func:`_byte_rows`: columns of the dtypes and row shapes
+    of ``like``."""
+    out, at = [], 0
+    for c in like:
+        w = _row_bytes(c)
+        out.append(rows[:, at : at + w].contiguous().view(c.dtype)
+                   .reshape(rows.shape[0], *c.shape[1:]))
+        at += w
+    return out
+
+
+def _exchange_across(dest, columns, mesh: LogicalMesh, stats) -> list:
+    per = len(mesh.local)
+    proc = torch.div(dest, per, rounding_mode="floor")
+    order = torch.argsort(proc, stable=True)
+    rows = _byte_rows([c[order] for c in columns] + [(dest[order] % per).to(torch.int32)])
+    comm = _comm_device(mesh)
+    send = torch.bincount(proc, minlength=mesh.world).to(comm)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    send_n, recv_n = send.tolist(), recv.tolist()
+    got = torch.empty((sum(recv_n), rows.shape[1]), dtype=torch.uint8, device=comm)
+    dist.all_to_all_single(got, rows.to(comm), recv_n, send_n)
+    if stats is not None:
+        stats["exchange_bytes"] = (sum(send_n) - send_n[mesh.rank]) * rows.shape[1]
+    *cols, local = _from_byte_rows(got.to(mesh.device), [*columns, dest[:0].to(torch.int32)])
+    return exchange(local, per, cols)
+
+
+def all_gather_bytes(buf: torch.Tensor, mesh: LogicalMesh, stats: Optional[dict] = None) -> list:
+    """Every process's 1-D uint8 ``buf``, in rank order, on the collective's
+    device: the sizes by one ``all_gather``, then the buffers padded to the
+    largest by a second.  ``stats`` receives this process's bytes in
+    ``gather_bytes`` (one entry a call)."""
+    comm = _comm_device(mesh)
+    size = torch.tensor([buf.numel()], dtype=torch.int64, device=comm)
+    sizes = [torch.empty_like(size) for _ in range(mesh.world)]
+    dist.all_gather(sizes, size)
+    sizes = torch.cat(sizes).tolist()
+    if stats is not None:
+        stats.setdefault("gather_bytes", []).append(buf.numel())
+    cap = max(sizes)
+    padded = torch.zeros(cap, dtype=torch.uint8, device=comm)
+    padded[: buf.numel()] = buf
+    if cap:  # every process skips together: each knows every size
+        bufs = [torch.empty_like(padded) for _ in range(mesh.world)]
+        dist.all_gather(bufs, padded)
+    else:
+        bufs = [padded] * mesh.world
+    return [b[:n] for b, n in zip(bufs, sizes)]
+
+
+def gather_ends(parts: Sequence[tuple], mesh: Optional[LogicalMesh] = None,
+                stats: Optional[dict] = None) -> tuple:
     """The stitch's gather (JAX's ``all_gather``): each shard's unitig end
-    columns, concatenated in shard order."""
-    return tuple(torch.cat(cols) for cols in zip(*parts))
+    columns, concatenated in shard order.  On a distributed ``mesh`` each
+    process's shards cross by :func:`all_gather_bytes`, so every process
+    holds every shard's ends."""
+    local = tuple(torch.cat(cols) for cols in zip(*parts))
+    if mesh is None or not mesh.distributed:
+        return local
+    rows = _byte_rows(local)
+    got = [_from_byte_rows(b.to(mesh.device).reshape(-1, rows.shape[1]), local)
+           for b in all_gather_bytes(rows.reshape(-1), mesh, stats)]
+    return tuple(torch.cat(cols) for cols in zip(*got))
+
+
+def gather_unitigs(flat: tuple, mesh: LogicalMesh, stats: Optional[dict] = None) -> tuple:
+    """Every process's shard unitigs ((bases, lengths, exts, data) numpy, as
+    :func:`_shard_unitigs` gives them) on every process, concatenated in
+    rank order, so in shard order: one byte buffer a process, its unitig
+    count, its (lengths, exts, data) rows and its bases, by
+    :func:`all_gather_bytes`."""
+    bases, lengths, exts, data = (torch.from_numpy(np.ascontiguousarray(x)) for x in flat)
+    like = [lengths, exts, data]
+    buf = torch.cat([torch.tensor([len(lengths)], dtype=torch.int64).view(torch.uint8),
+                     _byte_rows(like).reshape(-1), bases])
+    width = sum(_row_bytes(c) for c in like)
+    out = [[] for _ in range(4)]
+    for b in all_gather_bytes(buf, mesh, stats):
+        b = b.cpu()
+        n = int(b[:8].view(torch.int64))
+        cols = _from_byte_rows(b[8 : 8 + n * width].reshape(n, width), like)
+        for lst, x in zip(out, [b[8 + n * width :], *cols]):
+            lst.append(x.numpy())
+    return tuple(np.concatenate(x) for x in out)
 
 
 def dest_histogram(k: int, p: int, n_shards: int, bases, lengths, *, stranded: bool = False,
@@ -190,12 +306,14 @@ def _oriented(spec: KmerSpec, kmers, flip) -> torch.Tensor:
     return torch.where(flip.bool()[:, None], KM.rc(spec, kmers), kmers)
 
 
-def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts):
-    """The boundary stitch on the device, over every shard's unitigs: (node
-    chains, final unitig exts).  Global node ids are the shard's offset plus
-    the local unitig index (JAX's ``shard * cap + slot`` without the
-    padding); chain ids follow the least node id, so the final graph comes
-    out node for node as JAX's.
+def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts, mesh: LogicalMesh,
+                          stages: Stages):
+    """The boundary stitch on the device, over every shard's unitigs (on a
+    distributed mesh, this process's shards' ends gathered with every other
+    process's, ``gather_s``): (node chains, final unitig exts).  Global node
+    ids are the shard's offset plus the local unitig index (JAX's ``shard *
+    cap + slot`` without the padding); chain ids follow the least node id,
+    so the final graph comes out node for node as JAX's.
 
     1. fix_exts against the global node set: cross-shard extensions resolve
        onto another shard's unitig end, or drop;
@@ -209,7 +327,8 @@ def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts):
         parts.append((_oriented(spec, gather_rows(table.kmers, ch.first_item), ch.first_flip),
                       _oriented(spec, gather_rows(table.kmers, ch.last_item), ch.last_flip),
                       ue, ch.length))
-    g_fk, g_lk, g_exts, g_len = gather_ends(parts)
+    with stages("gather"):
+        g_fk, g_lk, g_exts, g_len = gather_ends(parts, mesh, stages.stats)
     m = g_fk.shape[0]
     dev = g_fk.device
     if m == 0:
@@ -268,44 +387,90 @@ def sharded_tables(
     list with one entry a shard; with ``stitch`` also the device stitch's
     node chains and final unitig exts.  ``stats``, a dict, receives the
     seconds of each stage (``pad_reads_s``, ``msp_s``, ``exchange_s``,
-    ``count_s`` and ``compress_s`` a shard, ``stitch_s``) and the intervals
-    a shard (``intervals``).
+    ``count_s`` and ``compress_s`` a shard, ``stitch_s``, ``gather_s``
+    within it), the intervals a shard (``intervals``) and the unitigs a
+    shard (``shard_unitigs``).
+
+    On a distributed mesh (:func:`parallel.global_mesh`) ``reads`` are this
+    process's own; it scans them in source blocks of its own, trades
+    intervals with the other processes and counts and compresses its own
+    shards (``mesh.local``), so the lists hold those shards only, while the
+    stitch's chains and exts cover every shard on every process.  A process
+    with no read of length >= k still takes part in every collective;
+    ``stats`` also receives ``exchange_bytes`` and ``gather_bytes``.
     """
     mesh = _mesh(mesh, device)
     dev, n_shards = mesh.device, mesh.n_shards
     stages = Stages(stats, dev)
     items = [np.asarray(s, np.uint8) for s in reads if len(s) >= k]
-    if not items:
+    if _count_reads(len(items), mesh) == 0:
         raise ValueError("no reads of length >= k")
-    with stages("pad_reads"):
-        bases, lengths = F.pad_reads(items, min_len=k, pad_to=16)
-    labels = np.zeros(len(items), np.int32) if labels is None else labels
     plan = ShardPlan(k, p, stranded, min_obs, n_shards, cap_per_dest)
-    bases, lengths = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
-    labels = F.as_tensor(labels, torch.int32, dev)
-    perm = None if permutation is None else F.as_tensor(permutation, torch.int32, dev)
-    with stages("msp"):
-        scanned = [_scan_source(plan, bases[lo:hi], lengths[lo:hi], labels[lo:hi], perm)
-                   for lo, hi in source_blocks(bases.shape[0], n_shards) if hi > lo]
-    del bases, lengths
+    scanned = []
+    if items:
+        with stages("pad_reads"):
+            bases, lengths = F.pad_reads(items, min_len=k, pad_to=16)
+        labels = np.zeros(len(items), np.int32) if labels is None else labels
+        bases, lengths = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
+        labels = F.as_tensor(labels, torch.int32, dev)
+        perm = None if permutation is None else F.as_tensor(permutation, torch.int32, dev)
+        with stages("msp"):
+            scanned = [_scan_source(plan, bases[lo:hi], lengths[lo:hi], labels[lo:hi], perm)
+                       for lo, hi in source_blocks(bases.shape[0], len(mesh.local)) if hi > lo]
+        del bases, lengths
     with stages("exchange"):
-        cols = [torch.cat(c) for c in zip(*scanned)]
+        cols = [torch.cat(c) for c in zip(*scanned)] if scanned else _no_intervals(plan, dev)
         del scanned
-        shards = exchange(cols[-1], n_shards, cols[:-1])
+        shards = exchange(cols[-1], n_shards, cols[:-1], mesh, stats)
         del cols
     if stats is not None:
         stats["intervals"] = [sh[0].shape[0] for sh in shards]
     tables, chains, u_exts, contrib = [], [], [], []
-    for s in range(n_shards):
+    for s in range(len(shards)):
         out = _shard_step(plan, *shards[s], data_reduce, stages)
         shards[s] = None  # a shard's intervals are done with once counted
         for lst, x in zip((tables, chains, u_exts, contrib), out):
             lst.append(x)
+    if stats is not None:
+        stats["shard_unitigs"] = [ch.n_unitigs for ch in chains]
     if not stitch:
         return plan, tables, chains, u_exts, contrib
     with stages("stitch"):
-        gchains, final_exts = _global_stitch_device(plan, tables, chains, u_exts)
+        gchains, final_exts = _global_stitch_device(plan, tables, chains, u_exts, mesh, stages)
     return plan, tables, chains, u_exts, contrib, gchains, final_exts
+
+
+def _count_reads(n: int, mesh: LogicalMesh) -> int:
+    """The reads of length >= k over every process of the mesh."""
+    if not mesh.distributed:
+        return n
+    total = torch.tensor([n], dtype=torch.int64, device=_comm_device(mesh))
+    dist.all_reduce(total)
+    return int(total)
+
+
+def _no_intervals(plan: ShardPlan, dev) -> list:
+    """The scan's columns for a process with no read: (bases, lengths,
+    exts, labels, destinations) of no interval."""
+    i32 = torch.zeros(0, dtype=torch.int32, device=dev)
+    return [torch.zeros((0, plan.interval_len), dtype=torch.uint8, device=dev), i32, i32, i32,
+            torch.zeros(0, dtype=torch.int64, device=dev)]
+
+
+def _shard_unitigs(spec: KmerSpec, tables, chains, u_exts, contrib, data_reduce) -> tuple:
+    """The shards' unitigs, assembled on the device and concatenated in
+    shard order: (bases uint8, lengths int64, exts int32, data int32) numpy,
+    the data each shard's counts folded by ``data_reduce``."""
+    out = [[np.zeros(0, np.uint8)], [np.zeros(0, np.int64)], [np.zeros(0, np.int32)],
+           [np.zeros(0, np.int32)]]
+    for table, ch, ue, cb in zip(tables, chains, u_exts, contrib):
+        if ch.n_unitigs:
+            seq, out_len = C.assemble_unitigs_device(spec, table.kmers, ch, cb)
+            data = C._fold_data(data_reduce, table.counts, ch)
+            for lst, x in zip(out, (seq.cpu().numpy(), out_len.cpu().numpy(),
+                                    ue.to(torch.int32).cpu().numpy(), data)):
+                lst.append(x)
+    return tuple(np.concatenate(x) for x in out)
 
 
 def assemble_sharded(
@@ -337,8 +502,14 @@ def assemble_sharded(
     ``collective=False`` combines the shard graphs and re-compresses them
     with ``graph.compress_graph``.  Both give the same graph.  ``stats``:
     see :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
-    unitigs, combined) and ``final_s`` (the host side of the stitch and the
-    final graph).
+    unitigs) and ``final_s`` (the host side of the stitch and the final
+    graph).
+
+    On a distributed mesh each process assembles its own shards' unitigs
+    and :func:`gather_unitigs` brings every shard's to every process (one
+    more ``gather_s``), which then stitches them as one process would:
+    every process returns the same graph
+    (``parallel.assemble_multiprocess``).
     """
     mesh = _mesh(mesh, device)
     dev = mesh.device
@@ -349,13 +520,12 @@ def assemble_sharded(
     plan, tables, chains, u_exts, contrib = out[:5]
     spec = plan.spec
     with stages("assemble"):
-        combined = BaseGraph(k, stranded)
-        for table, ch, ue, cb in zip(tables, chains, u_exts, contrib):
-            if ch.n_unitigs:
-                seq, out_len = C.assemble_unitigs_device(spec, table.kmers, ch, cb)
-                data = C._fold_data(data_reduce_compress, table.counts, ch)
-                combined.add_flat(seq.cpu().numpy(), out_len.cpu().numpy(),
-                                  ue.cpu().numpy(), data)
+        flat = _shard_unitigs(spec, tables, chains, u_exts, contrib, data_reduce_compress)
+    if mesh.distributed:
+        with stages("gather"):
+            flat = gather_unitigs(flat, mesh, stats)
+    combined = BaseGraph(k, stranded)
+    combined.add_flat(*flat)
     with stages("final"):
         if not collective:
             return compress_graph(combined.finish(device=dev), data_reduce=data_reduce_compress,
