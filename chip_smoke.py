@@ -30,13 +30,19 @@ Phases; any failure raises and the script exits non-zero:
    doubling loop on that carry, a list forest and an input with cycles:
    exact where a path ends, the cycle contract on cycles; the round path on
    an in-tree of that carry, exact, in one rank_loop launch; timed against
-   the one-launch doubling loop.
+   the one-launch doubling loop.  The two scan kernels: msp_scan at one
+   phase 9 source block (116,042 reads' p-mer scores, k = 31, p = 8), on
+   all-equal scores (poly-A reads) and on rising ones (a rescan a step);
+   run_reduce at the count's (111.4M, 4) rows in ~4.64M runs (the exts
+   column read in place, alone and with a sum column) and with one run of
+   10^7 rows, beside the sector floor and torch.segment_reduce's sum.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
-   rank_lists and rank_loop launched (one rank_loop per ranking; its rounds
-   are read from the device count), gather_rows in the count and
+   run_reduce, rank_lists and rank_loop launched (one rank_loop per
+   ranking; its rounds are read from the device count; every path is held
+   to its own list, ON_PATH_BY: msp_scan on the sharded paths only), gather_rows in the count and
    compress stages and in resolve_edges (called once more on the table
    after the counts are read), rank_lists never took its round path, the
    table lies on the card, every table kmer is in exactly one unitig, every
@@ -49,7 +55,8 @@ Phases; any failure raises and the script exits non-zero:
 4. The read-ordered path on phase 3's reads, held in memory:
    filter_kmers(data_reduce="obs_min") -> compress_kmer_table_device(
    first_pos=...) -> assemble_unitigs.  Checks: no overflow, chains equal
-   to the plain linker's on the same table, unitigs equal to phase 3's,
+   to the plain linker's on the same table and to link_chains_ordered
+   called in the JAX package's positional form (valid None and a mask), unitigs equal to phase 3's,
    the same kernels launched as in phase 3; prints the interval count, the
    rounds of each linker's rank_loop and the compress seconds of both
    linkers.
@@ -155,10 +162,12 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--stages`` runs none of that: it times the quick start's count and compress
-stages and both linkers on E. coli-length reads held in memory, with the
-card's busy time under torch.profiler, and the extraction kernel, the whole
-ranking and the count stage's row gathers at the main path's shapes, with
-the package found in
+stages and both linkers on E. coli-length reads held in memory, phase 9's
+assemble_sharded (its "msp" stage) and phase 7's streamed count of a FASTQ
+file (a chunk's median and its gather_rows launches), with the card's busy
+time under torch.profiler, and the extraction kernel, the whole ranking and
+the count stage's row gathers at the main path's shapes, with the package
+found in
 ``--root`` (default: beside this script), and prints one JSON line.  Run it
 on two checkouts in turns to compare them on one card.
 """
@@ -505,6 +514,108 @@ def phase_pointer_kernels(gen, n_states: int, device) -> list:
         {**rank_row, "max_abs_err": max(rank_row["max_abs_err"], err["rank_loop"])},
         rank_list_row,
     ]
+    return rows
+
+
+def exact_err(what, fn, plain) -> int:
+    """A kernel's outputs against its plain version's: the max abs error,
+    which must be 0."""
+    got, want = fn(), plain()
+    e = max_abs_diff([g for g in got if g is not None], [w for w in want if w is not None])
+    check(e == 0, f"{what}: kernel != plain (max abs err {e})")
+    return e
+
+
+def timed_exact(what, fn, plain) -> tuple:
+    """:func:`exact_err`, then both timed in turns: (max abs err, best
+    kernel ms, best plain ms)."""
+    e = exact_err(what, fn, plain)
+    ms, plain_ms, _ = time_pair(fn, plain)
+    return e, ms, plain_ms
+
+
+def phase_scan_kernels(gen, n_reads: int, n_obs: int, device) -> list:
+    """msp_scan at one phase 9 source block (ceil(R / 8) reads of phase 3's
+    row width, k = 31, p = 8) and run_reduce at the quick start's count
+    (n_obs 16-byte rows in runs of ~24), each against its plain version and
+    on a skewed input: all-equal scores (poly-A reads) and one run of 10^7
+    rows."""
+    from tpu_debruijn_torch import msp as TM
+    from tpu_debruijn_torch.kernels import msp_scan, msp_scan_plain, run_reduce, run_reduce_plain
+
+    rows = []
+    # msp_scan: the scores msp_scan_batch builds for random reads
+    l = -(-READ_LEN // 16) * 16
+    block = -(-n_reads // N_SHARDS)
+    w = K - P_MSP + 1
+    lengths = torch.full((block,), READ_LEN, dtype=torch.int32, device=device)
+    bases = torch.randint(0, 4, (block, l), generator=gen, dtype=torch.uint8, device=device)
+    scores = TM.msp_scores(P_MSP, bases, lengths)[1]
+    flat = TM.msp_scores(P_MSP, torch.zeros_like(bases), lengths)[1]  # poly-A: all equal
+    check(bool((flat == flat[0, 0]).all()), "poly-A reads gave unequal scores")
+    del bases
+    lk = scores.shape[1] - w + 1
+    e = exact_err("msp_scan", lambda: msp_scan(scores, w), lambda: msp_scan_plain(scores, w))
+    rec = kernel_row("msp_scan", "msp_scan.cu", "tpu_debruijn/msp.py:145",
+                     lambda: msp_scan(scores, w), lambda: msp_scan_plain(scores, w), e,
+                     f"({block}, {scores.shape[1]}) int32 scores, w = {w}",
+                     nbytes(scores) + block * lk * (1 + 4 + 4))
+    e2, ms2, plain2 = timed_exact("msp_scan all-equal", lambda: msp_scan(flat, w),
+                                  lambda: msp_scan_plain(flat, w))
+    rising = torch.arange(scores.shape[1], dtype=torch.int32, device=device).expand_as(scores).contiguous()
+    e3 = exact_err("msp_scan rising", lambda: msp_scan(rising, w), lambda: msp_scan_plain(rising, w))
+    ms3 = min(time_ms(lambda: msp_scan(rising, w)) for _ in range(2))
+    rec.update(max_abs_err=max(e, e2, e3), skewed="all-equal scores (poly-A reads)",
+               skewed_ms=ms2, skewed_plain_ms=plain2, rising_ms=ms3)
+    log(f"phase 2: msp_scan all-equal scores {ms2:.4f} ms (plain {plain2:.4f}), rising scores "
+        f"(a rescan every step) {ms3:.4f} ms, random {rec['ms']:.4f} ms")
+    rows.append(rec)
+    del scores, flat, rising, lengths
+
+    # run_reduce: the exts column of the sorted packed rows, runs of ~24
+    obs = torch.randint(0, 1 << 31, (n_obs, 4), generator=gen, dtype=torch.int32, device=device)
+
+    def ends_of(lens):
+        ends = torch.cumsum(lens, 0)
+        ends = ends[ends < n_obs]
+        return torch.cat([ends, ends.new_full((1,), n_obs)])
+
+    ends = ends_of(torch.randint(1, 48, (n_obs // 24 + 1,), generator=gen, device=device))
+    u = ends.shape[0]
+    col, sum_col = obs[:, 2], obs[:, 3]
+    e = exact_err("run_reduce", lambda: run_reduce(ends, col), lambda: run_reduce_plain(ends, col))
+    eb, both_ms, both_plain = timed_exact("run_reduce with sums", lambda: run_reduce(ends, col, sum_col),
+                                          lambda: run_reduce_plain(ends, col, sum_col))
+    library, library_form = None, None
+    lens = torch.diff(ends, prepend=ends.new_zeros(1))
+    for dt in (torch.int32, torch.int64, torch.float64):
+        data = sum_col if dt == torch.int32 else sum_col.to(dt)
+        try:
+            torch.segment_reduce(data, "sum", lengths=lens)
+        except (RuntimeError, NotImplementedError) as err:
+            log(f"phase 2: torch.segment_reduce on {dt}: {type(err).__name__}")
+            continue
+        library, library_form = (lambda d=data: torch.segment_reduce(d, "sum", lengths=lens)), str(dt)
+        break
+    rec = kernel_row("run_reduce", "run_reduce.cu", "tpu_debruijn/sorting.py:316",
+                     lambda: run_reduce(ends, col), lambda: run_reduce_plain(ends, col), e,
+                     f"({n_obs}, 4) int32 rows, column 2, {u} runs",
+                     nbytes(col, ends) + u * 4, library=library)
+    rec["library"] = f"torch.segment_reduce sum of column 3 ({library_form})" if library else None
+    rec["floor_ms"] = (n_obs * 16 + nbytes(ends) + u * 4) / HBM_BYTES_PER_S * 1e3
+    skew = torch.randint(1, 48, (n_obs // 24 + 1,), generator=gen, device=device)
+    skew[u // 2] = 10**7  # one run of 10^7 rows
+    ends_s = ends_of(skew)
+    e2, ms2, plain2 = timed_exact("run_reduce one long run", lambda: run_reduce(ends_s, col, sum_col),
+                                  lambda: run_reduce_plain(ends_s, col, sum_col))
+    ms2_or = min(time_ms(lambda: run_reduce(ends_s, col)) for _ in range(2))
+    rec.update(max_abs_err=max(e, eb, e2), both_ms=both_ms, both_plain_ms=both_plain,
+               skewed=f"one run of 10^7 rows among {ends_s.shape[0]} runs", skewed_ms=ms2_or,
+               skewed_both_ms=ms2, skewed_plain_ms=plain2, replaces_also="tpu_debruijn/filter.py:1195")
+    log(f"phase 2: run_reduce OR {rec['ms']:.4f} ms, OR + sum {both_ms:.4f} ms (plain "
+        f"{both_plain:.4f}); one run of 10^7 rows: OR {ms2_or:.4f} ms, OR + sum {ms2:.4f} ms; "
+        f"sector floor {rec['floor_ms']:.4f} ms; library ({rec['library']}) {rec['library_ms']}")
+    rows.append(rec)
     return rows
 
 
@@ -965,6 +1076,14 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     edges = C.resolve_edges(table.spec, False, table.kmers, table.exts)
     n_iv = int(C.discovery_intervals(edges["partner_l"], edges["partner_r"], table.data)[-1].sum())
     n = len(table)
+    # the linker called in the JAX package's positional form, without and
+    # with an all-valid mask, gives the compress route's chains
+    args = [edges[f] for f in ("partner_l", "partner_r", "in_l", "in_r")]
+    for valid in (None, torch.ones(n, dtype=torch.bool, device=device)):
+        direct, over = C.link_chains_ordered(*args, valid, table.data, max(1 << 14, n // 8))
+        check(not over and same_chains(direct, chains),
+              f"link_chains_ordered(valid={'mask' if valid is not None else None}) != the ordered chains")
+    del args, direct
 
     # the compress stage of both linkers, in turns: plain, ordered, ordered, plain
     linkers = {
@@ -1137,14 +1256,14 @@ def concat_sort_merge(keys, exts, counts, c_keys, c_exts, c_counts):
     sort, and reduce each run (counts summed and saturated, exts OR'd)."""
     from tpu_debruijn_torch import filter as TF
     from tpu_debruijn_torch import sorting as S
-    from tpu_debruijn_torch.kernels import gather_rows
+    from tpu_debruijn_torch.kernels import gather_rows, run_reduce
 
     keys = torch.cat([keys, c_keys])
     perm = S.lex_argsort(keys)
     keys = gather_rows(keys, perm)
     starts, ends = TF.run_bounds(S.run_starts(keys))
-    counts = TF._run_sum(gather_rows(torch.cat([counts, c_counts]), perm), ends)
-    exts = TF._run_or8(gather_rows(torch.cat([exts, c_exts]), perm), ends)
+    exts, counts = run_reduce(ends, gather_rows(torch.cat([exts, c_exts]), perm),
+                              gather_rows(torch.cat([counts, c_counts]), perm))
     return gather_rows(keys, starts), exts, counts.clamp(max=TF.COUNT_MAX).to(torch.int32)
 
 
@@ -2198,7 +2317,12 @@ COUNTERS = {
     "canonical": "canonicalize", "extract_canonical": "extract_canonical",
     "gather_rows": "gather_rows", "take_along_axis": "take_along_axis",
     "successor_walk": "successor_walk", "rank_loop": "rank_loop", "rank_lists": "rank_lists",
+    "run_reduce": "run_reduce", "msp_scan": "msp_scan",
 }
+# the kernels each path must launch: every path counts, sorts and ranks;
+# the sharded paths also scan minimizers
+ON_PATH = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists", "run_reduce")
+ON_PATH_BY = {"sharded": ON_PATH + ("msp_scan",), "multiprocess": ON_PATH + ("msp_scan",)}
 
 MP_WORKER = r'''
 """One process of chip_smoke.start_workers: argv = repo root, spec file, rank.
@@ -2407,12 +2531,62 @@ def phase_multiprocess(reads, table_main: dict, sharded_gfa: bytes, sharded_s: f
     return out
 
 
+def sharded_and_corpus_stages(raw, reps: int, device) -> dict:
+    """``--stages``' MSP and corpus numbers: ``reps`` calls of phase 9's
+    assemble_sharded (its "msp" stage and total seconds) and of phase 7's
+    streamed count of a FASTQ file in 64 chunks with the device merge (the
+    median seconds a chunk and gather_rows launches a chunk), and the card's
+    busy time of one call of each."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import parallel as TP
+    from tpu_debruijn_torch.kernels import gather_rows
+
+    mesh = TP.make_mesh(N_SHARDS, device=device)
+    shard = lambda stats=None: TP.assemble_sharded(raw, K, P_MSP, stranded=False, min_obs=2,
+                                                   mesh=mesh, device=device, stats=stats)
+    out = {"sharded_s": [], "sharded_msp_s": [], "corpus_chunk_s_median": [],
+           "corpus_count_merge_s": [], "corpus_gather_rows_per_chunk": []}
+    for _ in range(reps):
+        stats = {}
+        t0 = time.perf_counter()
+        shard(stats)
+        torch.cuda.synchronize()
+        out["sharded_s"].append(time.perf_counter() - t0)
+        out["sharded_msp_s"].append(sum(stats["msp_s"]))
+    out["device_ms_sharded"] = profile_device_ms(shard, top=8)
+    chunk = -(-len(raw) // 64)
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "reads.fq")
+        write_fastq(fq, raw)
+
+        def corpus(decode_s=None, chunk_s=None):
+            blocks = T.stream_fastx_blocks(fq, block_reads=chunk)
+            if chunk_s is not None:
+                blocks = timed_blocks(blocks, decode_s, chunk_s)
+            return T.filter_kmers_streaming(blocks, K, stranded=False, min_obs=2,
+                                            data_reduce="none", merge="device",
+                                            chunk_reads=chunk, device=device)
+
+        for _ in range(reps):
+            decode_s, chunk_s = [], []
+            before = gather_rows.launches
+            t0 = time.perf_counter()
+            corpus(decode_s, chunk_s)
+            torch.cuda.synchronize()
+            out["corpus_count_merge_s"].append(time.perf_counter() - t0 - sum(decode_s))
+            out["corpus_chunk_s_median"].append(float(np.median(chunk_s)))
+            out["corpus_gather_rows_per_chunk"].append((gather_rows.launches - before) / len(chunk_s))
+        out["device_ms_corpus"] = profile_device_ms(corpus, top=10)
+    return out
+
+
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
     time of one call of each, the extraction kernel, the whole ranking and
-    gather_rows at the main path's shapes (CUDA events).  Uses only entry
-    points that every version of the port has."""
+    gather_rows at the main path's shapes (CUDA events); the MSP and corpus
+    numbers of :func:`sharded_and_corpus_stages`.  Uses only entry points
+    that every version of the port with a sharded path has."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
     from tpu_debruijn_torch.kernels import _build, extract_canonical, gather_rows
@@ -2420,7 +2594,8 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
 
     _build.library()
     rng = np.random.default_rng(seed)
-    reads = [(r, 0, 0) for r in sample_reads(rng, make_genome(rng, ECOLI_LEN, False), COVERAGE, READ_LEN)]
+    raw = sample_reads(rng, make_genome(rng, ECOLI_LEN, False), COVERAGE, READ_LEN)
+    reads = [(r, 0, 0) for r in raw]
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -2450,6 +2625,7 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
         "linker_ordered": profile_device_ms(linkers["linker_ordered_s"]),
     }
     del table, ordered
+    out.update(sharded_and_corpus_stages(raw, reps, device))
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -2532,10 +2708,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += phase_pointer_kernels(gen, 2 * n_kmers, "cuda")
     torch.cuda.empty_cache()
+    rows += phase_scan_kernels(gen, n_reads, n_reads * (READ_LEN - K + 1), "cuda")
+    torch.cuda.empty_cache()
 
     # every wrapper counts its launches; the kernels each path must launch
     counters = {name: getattr(KN, attr) for name, attr in COUNTERS.items()}
-    on_path = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3: the main path
@@ -2598,7 +2775,7 @@ def main(argv=None) -> int:
         del reads
 
         for path, launches in by_path.items():
-            for name in on_path:
+            for name in ON_PATH_BY.get(path, ON_PATH):
                 check(launches[name] > 0, f"the {path} path never launched kernel {name}")
             check(launches["rank_lists.round_path"] == 0, f"the {path} path ranked by the round path")
             check(launches["rank_loop"] == launches["rank_lists"],

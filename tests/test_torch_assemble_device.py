@@ -31,7 +31,8 @@ def _host_flat(t):
     chains, u_exts, contrib = TC.compress_kmer_table_device(t.spec, t.stranded, t.kmers, t.exts)
     cpu = lambda a: a.numpy()
     return TC.assemble_unitigs_flat(
-        t.spec, TK.to_numpy(t.kmers), cpu(chains.uid), cpu(chains.pos), cpu(chains.length),
+        t.spec, TK.to_numpy(t.kmers), cpu(chains.uid), cpu(chains.pos), cpu(chains.flip),
+        cpu(chains.length),
         cpu(chains.first_item), cpu(chains.first_flip), chains.n_unitigs, cpu(u_exts),
         cpu(contrib), cpu(t.counts))
 

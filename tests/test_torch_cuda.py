@@ -20,11 +20,15 @@ from tpu_debruijn_torch.kernels import (
     extract_canonical_plain,
     gather_rows,
     gather_rows_plain,
+    msp_scan,
+    msp_scan_plain,
     rank_lists,
     rank_lists_plain,
     rank_loop,
     rank_loop_plain,
     rank_round_plain,
+    run_reduce,
+    run_reduce_plain,
     successor_walk,
     successor_walk_plain,
     take_along_axis,
@@ -531,3 +535,143 @@ def test_cli_and_walks_cuda_match_cpu(cuda, tmp_path):
     got = {dev: chip_smoke.cli_outputs(fq, dev, str(tmp_path)) for dev in ("cuda", "cpu")}
     assert len(got["cpu"]["max_path_beam"]) > 1 and len(got["cpu"]["gfa"]) > 1000
     assert chip_smoke.same_files(got["cuda"], got["cpu"])
+
+
+def _scan_scores(rng, kind: str, r: int, n: int) -> torch.Tensor:
+    """(r, n) int32 scores: random order keys of a few distinct values (ties
+    within windows), the full int32 range (p = 16 keys, negative ones
+    included), all equal (poly-A), rising (a rescan every step) or falling."""
+    if kind == "few":
+        s = rng.integers(-3, 3, (r, n))
+    elif kind == "full":
+        s = rng.integers(-(1 << 31), 1 << 31, (r, n))
+    elif kind == "equal":
+        s = np.full((r, n), 7)
+    elif kind == "rising":
+        s = np.broadcast_to(np.arange(n), (r, n))
+    else:
+        s = np.broadcast_to(-np.arange(n), (r, n))
+    return torch.from_numpy(np.ascontiguousarray(s, dtype=np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["few", "full", "equal", "rising", "falling"])
+@pytest.mark.parametrize("r,n,w", [(1000, 153, 24), (77, 153, 24), (3, 3001, 24),
+                                   (130, 24, 24), (65, 40, 1), (64, 200, 49)])
+def test_msp_scan_kernel_matches_plain(cuda, kind, r, n, w):
+    """One launch; whole (R, Lk) arrays against the plain loop, padding
+    included: rows staged in shared memory (n <= 191) and rows walked in
+    device memory (3001), Lk = 1 (n == w), w = 1, a partial last block."""
+    rng = np.random.default_rng(r + n + w)
+    scores = _scan_scores(rng, kind, r, n).to(cuda)
+    before = msp_scan.launches
+    got = msp_scan(scores, w)
+    assert msp_scan.launches == before + 1
+    want = msp_scan_plain(scores, w)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.shape == x.shape == (r, n - w + 1) and torch.equal(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p,perm", [(31, 8, False), (31, 16, False), (15, 5, True), (63, 12, False)])
+def test_msp_scan_batch_on_card(cuda, k, p, perm):
+    """msp_scan_batch and the interval table on the card equal the CPU's,
+    the recurrence in one msp_scan launch."""
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import msp as TM
+
+    rng = np.random.default_rng(k * p)
+    seqs = [rng.integers(0, 4, int(m)).astype(np.uint8) for m in rng.integers(k - 5, 200, 500)]
+    seqs += [np.zeros(150, np.uint8), np.full(150, 3, np.uint8)]
+    bases, lengths = TF.pad_reads(seqs, min_len=k, pad_to=16)
+    table = rng.permutation(4**p).astype(np.int32) if perm else None
+    b, l = torch.from_numpy(bases), torch.from_numpy(lengths)
+    before = msp_scan.launches
+    got = TM.msp_scan_batch(k, p, b.to(cuda), l.to(cuda), table)
+    assert msp_scan.launches == before + 1
+    for g, x in zip(got, TM.msp_scan_batch(k, p, b, l, table)):
+        assert torch.equal(g.cpu(), x)
+    iv = TM.msp_intervals_device(k, p, b.to(cuda), l.to(cuda), table)
+    want = TM.msp_intervals_device(k, p, b, l, table)
+    assert iv["n_intervals"] == want["n_intervals"]
+    assert all(torch.equal(iv[f].cpu(), want[f]) for f in want if f != "n_intervals")
+
+
+def _run_ends(rng, n: int, kind: str) -> np.ndarray:
+    if kind == "ones":
+        return np.arange(1, n + 1, dtype=np.int64)
+    if kind == "one_big":  # one run of 90% of the rows among runs of one
+        big = max(1, int(0.9 * n))
+        lo = int(rng.integers(0, n - big + 1))
+        return np.array([*range(1, lo + 1), lo + big, *range(lo + big + 1, n + 1)], np.int64)
+    lens = rng.geometric(1 / 24, n)  # 30x coverage: ~24 rows a kmer
+    ends = np.cumsum(lens)
+    return np.append(ends[ends < n], n).astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", ["both", "or", "sum"])
+@pytest.mark.parametrize("kind", ["random", "ones", "one_big"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 511, 512, 513, 100_000, 3_000_001])
+def test_run_reduce_kernel_matches_plain(cuda, n, kind, outputs):
+    """One launch over columns of 16-byte packed rows read in place; exts
+    bytes with every bit, negative labels; runs of one row, of ~24 and one
+    of 90% of the rows."""
+    rng = np.random.default_rng(n)
+    rows = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (n, 4)).astype(np.int32)).to(cuda)
+    ends = torch.from_numpy(_run_ends(rng, n, kind)).to(cuda)
+    or_col = rows[:, 2] if outputs != "sum" else None
+    sum_col = rows[:, 3] if outputs != "or" else None
+    before = run_reduce.launches
+    got = run_reduce(ends, or_col, sum_col)
+    assert run_reduce.launches == before + 1
+    want = run_reduce_plain(ends, or_col, sum_col)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert (g is None) == (x is None)
+        if g is not None:
+            assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+@pytest.mark.cuda
+def test_run_reduce_empty_and_refusals(cuda):
+    z = torch.zeros(0, dtype=torch.int32, device=cuda)
+    e = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = run_reduce.launches
+    o, s = run_reduce(e, z, z)
+    assert o.shape == s.shape == (0,) and run_reduce.launches == before
+    col = torch.ones(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        run_reduce(torch.tensor([8], device=cuda), col)  # int64 column
+    with pytest.raises(ValueError):
+        run_reduce(torch.tensor([8], dtype=torch.int32, device=cuda), col.int())  # int32 ends
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_reduce", ["sum", "label_first"])
+def test_count_reduces_runs_in_one_launch(cuda, data_reduce):
+    """count_kmers on the card makes one run_reduce launch (exts OR, and the
+    label sum with "sum") and gives the CPU's table; the colored count and
+    the pair rollup use it too."""
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import table_to_numpy
+
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, 5_000).astype(np.uint8)
+    reads = [(genome[s : s + 150], int(rng.integers(0, 256)), int(rng.integers(-99, 99)))
+             for s in rng.integers(0, len(genome) - 150, 600)]
+    reads.append((np.zeros(150, np.uint8), 255, -5))  # a poly-A run of 120 observations
+    kw = dict(stranded=False, min_obs=1, data_reduce=data_reduce)
+    before = run_reduce.launches
+    table = TF.filter_kmers(reads, 31, device=cuda, **kw)
+    assert run_reduce.launches == before + 1
+    got, want = table_to_numpy(table), table_to_numpy(TF.filter_kmers(reads, 31, device="cpu", **kw))
+    assert all(np.array_equal(got[x], want[x]) for x in got)
+    before = run_reduce.launches
+    sets = TF.filter_kmers_set_arrays(reads, 31, device=cuda)
+    assert run_reduce.launches == before + 2  # the pair count, then the rollup
+    want_sets = TF.filter_kmers_set_arrays(reads, 31, device="cpu")
+    got, want = table_to_numpy(sets[0]), table_to_numpy(want_sets[0])
+    assert all(np.array_equal(got[x], want[x]) for x in want)
+    assert all(torch.equal(g.cpu(), x) for g, x in zip(sets[1:], want_sets[1:]))

@@ -203,7 +203,7 @@ def test_link_chains_ordered_overflow_flag(rng):
 
 def test_link_chains_ordered_empty():
     z = torch.zeros(0, dtype=torch.int64)
-    ch, overflow = TC.link_chains_ordered(z, z, z, z, z, cap=16)
+    ch, overflow = TC.link_chains_ordered(z, z, z, z, None, z, cap=16)
     assert not overflow and ch.n_unitigs == 0 and ch.uid.shape == (0,)
 
 
@@ -221,8 +221,8 @@ def test_ordered_slice_matches_jax_compress(rng, k, stranded):
     cpu = lambda a: a.numpy()
     got = TC.assemble_unitigs(
         table.spec, table_to_numpy(table)["kmers"], cpu(chains.uid), cpu(chains.pos),
-        cpu(chains.length), cpu(chains.first_item), cpu(chains.first_flip), chains.n_unitigs,
-        cpu(u_exts), cpu(contrib), cpu(table.counts),
+        cpu(chains.flip), cpu(chains.length), cpu(chains.first_item), cpu(chains.first_flip),
+        chains.n_unitigs, cpu(u_exts), cpu(contrib), cpu(table.counts),
     )
     assert len(got) == len(want) > 1
     for (gs, ge, gd), (ws, we, wd) in zip(got, want):

@@ -78,7 +78,9 @@ checkpoints), ``compress`` (every policy; ``link_chains`` and
 ``clean`` (tips), ``convert`` (tables and graphs), ``assemble`` and the
 kernels in ``kernels/``: the two kmer kernels, the gathers and pointer
 jumps that replace the Pallas gather probes, among them the doubling loop
-of chain linking in one launch, and the ruling-set list ranking.
+of chain linking in one launch, the ruling-set list ranking, and the two
+sequential scans of the JAX package: the count's per-run exts OR and sums
+(``run_reduce``) and the MSP scanner's recurrence (``msp_scan``).
 
 The JAX package's static-shape machinery has no counterpart by design:
 see ROADMAP.md section 1 for each such name and where the port does its

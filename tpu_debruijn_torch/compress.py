@@ -310,21 +310,25 @@ def link_chains(partner_l, partner_r, in_l, in_r, valid=None) -> Chains:
     return dataclasses.replace(ch, uid=torch.where(valid, ch.uid, -1))
 
 
-def discovery_intervals(partner_l, partner_r, first_pos):
+def discovery_intervals(partner_l, partner_r, first_pos, valid=None):
     """Items in discovery order and their read-adjacent intervals (steps 1
     and 2 of :func:`link_chains_ordered`).
 
     Returns (orig, rank, rlp, rrp, bnd): ``orig[x]`` is the item of rank
-    ``x`` (increasing ``first_pos``, ties by item id), ``rank`` its inverse,
-    ``rlp``/``rrp`` the ranks of rank ``x``'s left/right partners (-1:
-    none), and ``bnd`` marks the first rank of each interval, a maximal run
-    of ranks each a partner of the one before.
+    ``x`` (increasing ``first_pos``, ties by item id; items ``valid``
+    masks out rank last), ``rank`` its inverse, ``rlp``/``rrp`` the ranks
+    of rank ``x``'s left/right partners (-1: none), and ``bnd`` marks the
+    first rank of each interval, a maximal run of ranks each a partner of
+    the one before.
     """
     n = partner_l.shape[0]
     pos = torch.arange(n, device=partner_l.device)
-    # the JAX package clamps below its sentinel for invalid items; the same
-    # clamp keeps the order identical for any first_pos
-    orig = torch.sort(first_pos.to(torch.int64).clamp(0, 0x7FFFFFFE), stable=True).indices
+    # the JAX package's key: valid items' first_pos clamped below the
+    # invalid items' sentinel
+    key = first_pos.to(torch.int64).clamp(0, 0x7FFFFFFE)
+    if valid is not None:
+        key = torch.where(valid, key, 0x7FFFFFFF)
+    orig = torch.sort(key, stable=True).indices
     rank = torch.empty_like(orig)
     rank[orig] = pos
     plo, pro = partner_l[orig], partner_r[orig]
@@ -336,9 +340,13 @@ def discovery_intervals(partner_l, partner_r, first_pos):
     return orig, rank, rlp, rrp, bnd
 
 
-def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
+def link_chains_ordered(partner_l, partner_r, in_l, in_r, valid, first_pos, cap: int):
     """Chain linking by read-adjacency contraction: :func:`link_chains`'
     result, with list ranking on a graph of intervals.
+
+    ``valid`` ((n,) bool, or None for all) masks items out as in
+    :func:`link_chains`: they rank after every valid item, start no chain
+    and get uid -1.
 
     ``first_pos`` is each item's first-occurrence observation index
     (``filter_kmers(data_reduce="obs_min")``).  In that order most chain
@@ -358,13 +366,16 @@ def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
     """
     n = partner_l.shape[0]
     dev = partner_l.device
-    orig, rank, rlp, rrp, bnd = discovery_intervals(partner_l, partner_r, first_pos)
+    orig, rank, rlp, rrp, bnd = discovery_intervals(partner_l, partner_r, first_pos, valid)
     starts = torch.nonzero(bnd).flatten()  # interval first ranks, in order
     n_iv = starts.shape[0]
-    if n_iv > cap:
-        return link_chains(partner_l, partner_r, in_l, in_r), True
+    # invalid items hold the last ranks; only valid intervals count
+    n_valid = n if valid is None else int(valid.sum())
+    if int((starts < n_valid).sum()) > cap:
+        return link_chains(partner_l, partner_r, in_l, in_r, valid), True
 
     pos = torch.arange(n, device=dev)
+    live = (pos < n_valid).repeat_interleave(2)
     is_end = torch.ones(n, dtype=torch.bool, device=dev)
     is_end[:-1] = bnd[1:]
     icid = torch.cumsum(bnd, 0) - 1  # interval id of each rank
@@ -384,7 +395,7 @@ def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
     cmn = S.segment_min((orig << 1) | ofwd, icid, n_iv)
 
     # sigma states: 2x + o is rank x in orientation o
-    succ_sig = _succ_states(rlp, rrp, in_l[orig], in_r[orig])
+    succ_sig = torch.where(live, _succ_states(rlp, rrp, in_l[orig], in_r[orig]), -1)
     node_sig = orig.repeat_interleave(2)
     orient_sig = torch.arange(2, device=dev).repeat(n)
     no_pred = torch.stack([rlp < 0, rrp < 0], dim=1).reshape(2 * n)
@@ -430,10 +441,12 @@ def link_chains_ordered(partner_l, partner_r, in_l, in_r, first_pos, cap: int):
         mnmo[2 * cb + (1 - cb_of)] = cmnmo[1::2]
         extra_starts = torch.zeros(2 * n, dtype=torch.bool, device=dev)
 
-    ch = _emit_chains(n, node_sig, orient_sig, dist, mnmo, end_id, no_pred | extra_starts,
+    ch = _emit_chains(n, node_sig, orient_sig, dist, mnmo, end_id, (no_pred | extra_starts) & live,
                       node_of_end=lambda e: node_sig[e])
-    # per-rank labels back to item order
-    return dataclasses.replace(ch, uid=ch.uid[rank], pos=ch.pos[rank], flip=ch.flip[rank]), False
+    # per-rank labels back to item order; an item in no unitig gets position
+    # 0, as the JAX package's clamp gives it
+    pos_r = torch.where(ch.uid >= 0, ch.pos, 0)
+    return dataclasses.replace(ch, uid=ch.uid[rank], pos=pos_r[rank], flip=ch.flip[rank]), False
 
 
 def unitig_end_exts(exts: torch.Tensor, chains: Chains) -> torch.Tensor:
@@ -474,7 +487,7 @@ def compress_kmer_table_device(spec: KmerSpec, stranded: bool, kmers: torch.Tens
     if first_pos is None:
         return _with_ends(spec, kmers, exts, link_chains(*args))
     cap = order_cap or max(1 << 14, kmers.shape[0] // 8)
-    chains, overflow = link_chains_ordered(*args, first_pos, cap)
+    chains, overflow = link_chains_ordered(*args, None, first_pos, cap)
     return _with_ends(spec, kmers, exts, chains) + (overflow,)
 
 
@@ -598,10 +611,12 @@ def _fold_objects(fn, payloads, idxs, uid, pos, n_unitigs) -> list:
 # ---------------------------------------------------------------------------
 
 
-def assemble_unitigs_flat(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
+def assemble_unitigs_flat(spec: KmerSpec, kmers: np.ndarray, uid, pos, flip, lengths,
                           first_item, first_flip, nutg: int, u_exts, contrib, data_np, *,
                           data_reduce="sum_sat_u16"):
     """Host: chain labels -> flat unitig buffers, with no per-unitig loop.
+    ``flip`` is the JAX package's argument, unread there too: ``contrib``
+    already holds each item's oriented base.
 
     Returns ``(seq_flat uint8, out_lengths int64, u_exts int32, data
     int32)``, the ``BaseGraph.add_flat`` input: ``data_np`` folded per
@@ -639,12 +654,12 @@ def _nodes(seq_flat, out_lengths, u_exts, data) -> list:
             for u in range(len(out_lengths))]
 
 
-def assemble_unitigs(spec: KmerSpec, kmers: np.ndarray, uid, pos, lengths,
+def assemble_unitigs(spec: KmerSpec, kmers: np.ndarray, uid, pos, flip, lengths,
                      first_item, first_flip, nutg: int, u_exts, contrib, data_np, *,
                      data_reduce="sum_sat_u16"):
     """Host: chain labels -> unitig list [(bases, exts, data)]."""
     seq_flat, out_lengths, u_exts_t, data_red = assemble_unitigs_flat(
-        spec, kmers, uid, pos, lengths, first_item, first_flip, nutg,
+        spec, kmers, uid, pos, flip, lengths, first_item, first_flip, nutg,
         u_exts, contrib, data_np, data_reduce=data_reduce,
     )
     return _nodes(seq_flat, out_lengths, u_exts_t, data_red.tolist())
@@ -662,6 +677,7 @@ def assemble_chains(spec: KmerSpec, kmers: torch.Tensor, chains: Chains, u_exts,
         KM.to_numpy(kmers),
         cpu(chains.uid),
         cpu(chains.pos),
+        cpu(chains.flip),
         cpu(chains.length),
         cpu(chains.first_item),
         cpu(chains.first_flip),

@@ -18,7 +18,8 @@ as payload operands; ``torch.sort`` has none.  So each observation becomes
 one packed int32 row (:func:`pack_obs_rows`: the limbs' 32-bit words, exts,
 the label, padding to 16 or 32 bytes) and every per-observation move is one
 row gather (``kernels.gather_rows``): the valid-slot compaction and the
-sort permutation.
+sort permutation.  Each run's exts OR (and label or count sum) is one
+``kernels.run_reduce`` pass over the sorted rows' columns, read in place.
 
 :func:`filter_kmers_streaming` counts a corpus in chunks: each chunk's
 table is LSM-merged on the host (``merge="host"``), or joined into a
@@ -49,6 +50,7 @@ from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize as _canonicalize
 from tpu_debruijn_torch.kernels.extract_canonical import extract_canonical, extract_kmers
 from tpu_debruijn_torch.kernels.gather import gather_rows
+from tpu_debruijn_torch.kernels.run_reduce import run_reduce
 from tpu_debruijn_torch.kmer import M32, KmerSpec
 
 __all__ = [
@@ -199,27 +201,6 @@ def row_limbs(rows: torch.Tensor, w: int) -> torch.Tensor:
     return rows[..., :w].to(torch.int64) & M32
 
 
-def _run_or8(vals: torch.Tensor, ends: torch.Tensor):
-    """Bitwise OR of 8-bit ``vals`` over each run of a partition of [0, n)
-    into runs that end (exclusive) at ``ends``: one cumulative count per
-    bit, read at each run's last element and differenced."""
-    out = torch.zeros(ends.shape[0], dtype=torch.int32, device=vals.device)
-    vals = vals.contiguous()  # a column of the packed rows: read them once
-    last = ends - 1
-    for b in range(8):
-        c = gather_rows(torch.cumsum((vals >> b) & 1, 0, dtype=torch.int32), last)
-        out |= (torch.diff(c, prepend=c.new_zeros(1)) > 0).to(torch.int32) << b
-    return out
-
-
-def _run_sum(vals: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
-    """int64 sum of ``vals`` over each run of a partition of [0, n) into
-    runs that end (exclusive) at ``ends``: one cumulative sum, read at each
-    run's last element and differenced."""
-    c = gather_rows(torch.cumsum(vals, 0, dtype=torch.int64), ends - 1)
-    return torch.diff(c, prepend=c.new_zeros(1))
-
-
 def _sorted_runs(spec: KmerSpec, bases, lengths, seq_exts, lab, stranded: bool,
                  by_label: bool = False):
     """The valid observations of a padded read batch as packed rows
@@ -293,7 +274,10 @@ def count_kmers(
     srows, is_start, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts, lab, stranded)
     del lab
     counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
-    or_exts = _run_or8(srows[:, w], ends)
+    # the exts OR (and with "sum" the label sum) of each run, in one pass
+    # over the rows' columns in place
+    or_exts, label_sum = run_reduce(ends, srows[:, w],
+                                    srows[:, w + 1] if data_reduce == "sum" else None)
     # the stable sort keeps each run's observations in slot order, so the
     # run start holds the first label and the least slot index
     urows = gather_rows(srows, starts)
@@ -304,7 +288,7 @@ def count_kmers(
         run = torch.cumsum(is_start, 0) - 1
         data = S.segment_min(srows[:, w + 1], run, starts.shape[0], "a" + data_reduce)
     elif data_reduce == "sum":  # wraps in int32, as the JAX package's int32 scan does
-        data = _run_sum(srows[:, w + 1], ends).to(torch.int32)
+        data = label_sum.to(torch.int32)
     else:
         data = urows[:, w + 1]
     kept = (ukmers, or_exts, counts, data)
@@ -334,7 +318,8 @@ def count_kmer_pairs(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
                                           labels.to(torch.int32)[:, None], stranded, by_label=True)
     urows = gather_rows(srows, starts)
     counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
-    return row_limbs(urows, w), urows[:, w + 1].contiguous(), _run_or8(srows[:, w], ends), counts
+    exts = run_reduce(ends, srows[:, w])[0]
+    return row_limbs(urows, w), urows[:, w + 1].contiguous(), exts, counts
 
 
 def _pair_keys(spec: KmerSpec, bases, lengths, seq_exts, labels, *, stranded: bool):
@@ -858,8 +843,8 @@ def _pair_table(spec: KmerSpec, stranded: bool, min_obs: int, keys, exts, counts
     kmers = keys[:, :w]
     is_start = S.run_starts(kmers)
     starts, ends = run_bounds(is_start)
-    kcounts = _run_sum(counts, ends).clamp(max=COUNT_MAX).to(torch.int32)
-    kexts = _run_or8(exts, ends)
+    kexts, kcounts = run_reduce(ends, exts, counts)
+    kcounts = kcounts.clamp(max=COUNT_MAX).to(torch.int32)
     keep = kcounts >= min_obs
     kept = torch.nonzero(keep).flatten()
     pairs = torch.nonzero(keep[torch.cumsum(is_start, 0) - 1]).flatten()

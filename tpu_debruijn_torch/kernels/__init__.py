@@ -17,6 +17,7 @@ from tpu_debruijn_torch.kernels.gather import (
     take_along_axis,
     take_along_axis_plain,
 )
+from tpu_debruijn_torch.kernels.msp_scan import msp_scan, msp_scan_plain
 from tpu_debruijn_torch.kernels.pointer_jump import (
     rank_lists,
     rank_lists_plain,
@@ -27,6 +28,7 @@ from tpu_debruijn_torch.kernels.pointer_jump import (
     successor_walk,
     successor_walk_plain,
 )
+from tpu_debruijn_torch.kernels.run_reduce import run_reduce, run_reduce_plain
 
 __all__ = [
     "canonicalize",
@@ -37,12 +39,16 @@ __all__ = [
     "extract_kmers",
     "gather_rows",
     "gather_rows_plain",
+    "msp_scan",
+    "msp_scan_plain",
     "rank_lists",
     "rank_lists_plain",
     "rank_lists_rulers_plain",
     "rank_loop",
     "rank_loop_plain",
     "rank_round_plain",
+    "run_reduce",
+    "run_reduce_plain",
     "successor_walk",
     "successor_walk_plain",
     "take_along_axis",

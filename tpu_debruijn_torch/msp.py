@@ -8,9 +8,10 @@ is strictly smaller (msp.rs:237-248).  Computed as
 
 * the p-mer ranks of every read position by the plain kmer extractor
   (``kernels.extract_canonical.extract_kmers``),
-* a sparse-table windowed minimum for the re-scan values,
-* a loop over the kmer positions carrying the (value, position) state of
-  every read at once (JAX's ``lax.scan``).
+* the scanner's recurrence over the kmer positions of every read (JAX's
+  ``lax.scan``): on a CUDA tensor one launch of ``kernels.msp_scan``
+  (``csrc/msp_scan.cu``), on a CPU tensor its plain version, a windowed
+  minimum and a loop carrying every read's (value, position) state.
 
 Every kmer of a read lands in exactly one interval; intervals hold p to
 2k - p bases; an interval's bucket is its rc-canonical minimizer rank
@@ -19,8 +20,7 @@ Every kmer of a read lands in exactly one interval; intervals hold p to
 Scores and positions are int32.  A p-mer rank is a uint32 bit pattern (all
 32 bits at p = 16); the scan holds its int32 view, as JAX does, and
 :func:`msp_intervals_device` returns ranks and buckets as int64 values in
-[0, 2^32).  The scan stays plain torch on every device: the JAX package has
-no kernel here either.
+[0, 2^32).
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ import torch
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch.filter import as_tensor, pad_reads
 from tpu_debruijn_torch.kernels.extract_canonical import extract_kmers
+from tpu_debruijn_torch.kernels.msp_scan import msp_scan
 from tpu_debruijn_torch.kmer import M32, KmerSpec
 
-INF = 2**31 - 1
 _SIGN = -(2**31)
 
 
@@ -72,46 +72,12 @@ def _rc_rank(p: int, ranks: torch.Tensor) -> torch.Tensor:
     return _i32_view(KM.rc(KmerSpec(p), _u32(ranks)[..., None])[..., 0])
 
 
-def _best(av, ap, bv, bp):
-    """MinPos combine: value ascending, ties prefer the larger position."""
-    take_b = (bv < av) | ((bv == av) & (bp > ap))
-    return torch.where(take_b, bv, av), torch.where(take_b, bp, ap)
-
-
-def _shift_left(x: torch.Tensor, by: int, fill: int) -> torch.Tensor:
-    """Columns ``by..`` of (R, N) ``x`` moved to the front, ``fill`` after."""
-    return torch.cat([x[:, by:], torch.full((x.shape[0], by), fill, dtype=x.dtype,
-                                            device=x.device)], dim=1)
-
-
-def _window_min(scores: torch.Tensor, w: int):
-    """Sparse-table windowed minimum over [i, i + w) with the rightmost
-    tie-break: (vals, poss), each (R, N) int32; positions past N count as
-    +inf."""
-    r, n = scores.shape
-    fv = scores
-    fp = torch.arange(n, dtype=torch.int32, device=scores.device).expand(r, n)
-    level = 1
-    while level * 2 <= w:
-        fv, fp = _best(fv, fp, _shift_left(fv, level, INF), _shift_left(fp, level, 0))
-        level *= 2
-    # combine [i, i + level) and [i + w - level, i + w)
-    off = w - level
-    return _best(fv, fp, _shift_left(fv, off, INF), _shift_left(fp, off, 0))
-
-
-def msp_scan_batch(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
-                   permutation=None, rc: bool = True):
-    """Scanner::scan over a padded read batch, on the batch's device.
-
-    Returns (R, Lk) tensors, Lk = L - k + 1: ``new_interval`` (bool, a new
-    interval starts at kmer index i), ``min_rank`` (int32 view of the
-    minimizer p-mer rank of the interval active at i), ``min_pos`` (int32
-    minimizer position) and ``valid`` (i <= len - k).  ``permutation`` is a
-    (4^p,) score table (p <= 15), as in JAX.
-    """
-    rr, l = bases.shape
-    lk = l - k + 1
+def msp_scores(p: int, bases: torch.Tensor, lengths: torch.Tensor, permutation=None,
+               rc: bool = True):
+    """(ranks, scores), each (R, L - p + 1) int32: every p-mer's rank (its
+    uint32 bit pattern) and the score the scanner minimizes: the
+    permutation table's entry (p <= 15) or the rank's order key, the
+    lesser of the p-mer's and its reverse complement's with ``rc``."""
     dev = bases.device
     ranks, _ = pmer_ranks(p, bases, lengths)
     if permutation is not None:
@@ -126,30 +92,27 @@ def msp_scan_batch(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
         scores = _order_key(ranks)
         if rc:
             scores = torch.minimum(scores, _order_key(_rc_rank(p, ranks)))
+    return ranks, scores
 
-    wv, wp = _window_min(scores, k - p + 1)
-    # the loop reads one column a step: lay columns out contiguously
-    scores_t, wv_t, wp_t = (x.t().contiguous() for x in (scores, wv, wp))
-    del wv, wp
-    flags = torch.empty((lk, rr), dtype=torch.bool, device=dev)
-    mvals = torch.empty((lk, rr), dtype=torch.int32, device=dev)
-    mposs = torch.empty((lk, rr), dtype=torch.int32, device=dev)
-    mval, mpos = wv_t[0], wp_t[0]
-    flags[0], mvals[0], mposs[0] = True, mval, mpos
-    for i in range(1, lk):
-        end_pos = i + (k - p)
-        end_val = scores_t[end_pos]
-        rescan = i > mpos
-        better = end_val < mval
-        mval = torch.where(rescan, wv_t[i], torch.where(better, end_val, mval))
-        mpos = torch.where(rescan, wp_t[i], torch.where(better, end_pos, mpos))
-        flags[i] = rescan | better
-        mvals[i], mposs[i] = mval, mpos
+
+def msp_scan_batch(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
+                   permutation=None, rc: bool = True):
+    """Scanner::scan over a padded read batch, on the batch's device.
+
+    Returns (R, Lk) tensors, Lk = L - k + 1: ``new_interval`` (bool, a new
+    interval starts at kmer index i), ``min_rank`` (int32 view of the
+    minimizer p-mer rank of the interval active at i), ``min_pos`` (int32
+    minimizer position) and ``valid`` (i <= len - k).  ``permutation`` is a
+    (4^p,) score table (p <= 15), as in JAX.
+    """
+    lk = bases.shape[1] - k + 1
+    dev = bases.device
+    ranks, scores = msp_scores(p, bases, lengths, permutation, rc)
+    flags, _, mposs = msp_scan(scores, k - p + 1)
     pos = torch.arange(lk, dtype=torch.int32, device=dev)[None, :]
     valid = pos <= (lengths.to(torch.int32)[:, None] - k)
-    mposs = mposs.t()
     min_rank = torch.take_along_dim(ranks, mposs.clamp(0, ranks.shape[1] - 1).long(), dim=1)
-    return flags.t() & valid, min_rank, mposs, valid
+    return flags & valid, min_rank, mposs, valid
 
 
 def msp_intervals_device(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
