@@ -35,14 +35,21 @@ Phases; any failure raises and the script exits non-zero:
    all-equal scores (poly-A reads) and on rising ones (a rescan a step);
    run_reduce at the count's (111.4M, 4) rows in ~4.64M runs (the exts
    column read in place, alone and with a sum column) and with one run of
-   10^7 rows, beside the sector floor and torch.segment_reduce's sum.
+   10^7 rows, beside the sector floor and torch.segment_reduce's sum.  The
+   one-pass forms: run_reduce_rows on (111.4M, 4) sorted rows in ~4.64M
+   runs (labels "first", "min" and "sum", into a separate output and in
+   place) beside torch.unique_consecutive on the key, and on one run of
+   10^7 rows, all rows distinct, runs of a tile +- 1 and a run past 65535
+   rows; msp_scan_reads at one phase 9 source block of bases and on poly-A
+   reads, rising scores, p = 16 and the inverse-frequency table; both with
+   their device time under torch.profiler.
 3. The main path, the README quick start on device="cuda", at bacterial
    genome scale: a random genome of E. coli K-12 MG1655's length
    (4,641,652 bp), 150 bp reads at 30x coverage, half reverse-complemented,
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
-   run_reduce, rank_lists and rank_loop launched (one rank_loop per
+   run_reduce_rows, rank_lists and rank_loop launched (one rank_loop per
    ranking; its rounds are read from the device count; every path is held
-   to its own list, ON_PATH_BY: msp_scan on the sharded paths only), gather_rows in the count and
+   to its own list, ON_PATH_BY: msp_scan_reads on the sharded paths only), gather_rows in the count and
    compress stages and in resolve_edges (called once more on the table
    after the counts are read), rank_lists never took its round path, the
    table lies on the card, every table kmer is in exactly one unitig, every
@@ -161,14 +168,15 @@ Phases; any failure raises and the script exits non-zero:
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--stages`` runs none of that: it times the quick start's count and compress
-stages and both linkers on E. coli-length reads held in memory, phase 9's
-assemble_sharded (its "msp" stage) and phase 7's streamed count of a FASTQ
-file (a chunk's median and its gather_rows launches), with the card's busy
-time under torch.profiler, and the extraction kernel, the whole ranking and
-the count stage's row gathers at the main path's shapes, with the package
-found in
-``--root`` (default: beside this script), and prints one JSON line.  Run it
+``--stages`` runs none of that: it times the quick start's count (and its
+peak) and compress stages and both linkers on E. coli-length reads held in
+memory, the count's tail pass by pass, phase 9's assemble_sharded (its
+"msp" stage), phase 7's streamed count of a FASTQ file (a chunk's median and
+its gather_rows launches) and phase 8's colored count (and its peak), with
+the card's busy time under torch.profiler, and the extraction kernel, the
+whole ranking and the count stage's row gathers at the main path's shapes,
+with the package found in ``--root`` (default: beside this script), and
+prints one JSON line.  Run it
 on two checkouts in turns to compare them on one card.
 """
 
@@ -619,6 +627,158 @@ def phase_scan_kernels(gen, n_reads: int, n_obs: int, device) -> list:
     return rows
 
 
+def rising_read(l: int, p: int):
+    """A read of l bases whose p-mers are distinct (a prefix of a de Bruijn
+    sequence of order p; l - p + 1 <= 4^p) and a (4^p,) score table ranking
+    them in read order, every other p-mer last: scored forward, its scores
+    rise, so the scanner rescans its window every step."""
+    a, seq = [0] * (p + 1), []
+
+    def db(t, q):  # the Lyndon-word construction, stopped once long enough
+        if len(seq) >= l:
+            return
+        if t > p:
+            if p % q == 0:
+                seq.extend(a[1 : q + 1])
+            return
+        a[t] = a[t - q]
+        db(t + 1, q)
+        for j in range(a[t - q] + 1, 4):
+            a[t] = j
+            db(t + 1, t)
+
+    db(1, 1)
+    read = np.array(seq[:l], np.int64)
+    ranks = np.zeros(l - p + 1, np.int64)
+    for j in range(p):
+        ranks = (ranks << 2) | read[j : j + l - p + 1]
+    check(len(np.unique(ranks)) == len(ranks), f"a de Bruijn prefix repeated a {p}-mer")
+    perm = np.full(4**p, 1 << 30, np.int32)
+    perm[ranks] = np.arange(len(ranks), dtype=np.int32)
+    return read.astype(np.uint8), perm
+
+
+def sorted_obs_rows(gen, n: int, lens, device) -> torch.Tensor:
+    """(n, 4) int32 packed observation rows (W = 2, K = 31) whose keys come
+    in runs of ``lens`` (cut at n): a multiplicative hash of the run number
+    and a random word, so neighbouring runs differ; random exts bytes and
+    labels."""
+    run = torch.repeat_interleave(torch.arange(lens.shape[0], device=device), lens)[:n]
+    check(run.shape[0] == n, "run lengths cover fewer rows than asked")
+    rows = torch.randint(-(1 << 31), 1 << 31, (n, 4), generator=gen, dtype=torch.int32,
+                         device=device)
+    rows[:, 0] = ((run * 2654435761) & 0xFFFFFFFF).to(torch.int32)
+    word = torch.randint(-(1 << 31), 1 << 31, (lens.shape[0],), generator=gen,
+                         dtype=torch.int32, device=device)
+    rows[:, 1] = word[run]
+    rows[:, 2] &= 0xFF
+    return rows
+
+
+def phase_fused_kernels(gen, n_reads: int, n_obs: int, device) -> list:
+    """The one-pass forms of the scan kernels, each against its plain
+    version (exact) at the main path's shapes: run_reduce_rows on the quick
+    start's count ((n_obs, 4) sorted rows in runs of ~24, label "first", and
+    "min" and "sum" checked) beside torch.unique_consecutive on the key, and
+    on skewed runs (one of 10^7 rows, all rows distinct, runs of a tile +- 1,
+    one past 65535 rows), into a separate output and in place;
+    msp_scan_reads at one phase 9 source block (k = 31, p = 8) and on poly-A
+    reads, rising scores, p = 16 and the inverse-frequency table."""
+    from tpu_debruijn_torch import msp as TM
+    from tpu_debruijn_torch.kernels import (
+        msp_scan_reads, msp_scan_reads_plain, run_reduce_rows, run_reduce_rows_plain,
+    )
+
+    rows = []
+    # run_reduce_rows: the count's tail at the quick start's shape
+    w = 2
+    # runs of 1-47 rows, ~24 on average (30x), enough of them to cover n_obs
+    lens = torch.randint(1, 48, (n_obs // 20,), generator=gen, device=device)
+    srows = sorted_obs_rows(gen, n_obs, lens, device)
+    out = torch.empty_like(srows)
+    into = lambda op="first", x=srows: run_reduce_rows(x, w, label_op=op, out=out)
+    plain = lambda op="first", x=srows: run_reduce_rows_plain(x, w, label_op=op, out=out)
+    errs = [exact_err(f"run_reduce_rows {op}", lambda: (into(op).clone(),),
+                      lambda: (plain(op).clone(),)) for op in ("first", "min", "sum")]
+    want = plain().clone()
+    u = want.shape[0]
+    inplace = run_reduce_rows(srows.clone(), w)
+    errs.append(max_abs_diff([inplace], [want]))
+    check(errs[-1] == 0, "run_reduce_rows in place != plain")
+    del inplace
+    key = srows[:, :2].contiguous().view(torch.int64).flatten()
+    rec = kernel_row("run_reduce_rows", "run_reduce.cu", "tpu_debruijn/sorting.py:316",
+                     into, plain, max(errs), f"({n_obs}, 4) int32 sorted rows, {u} runs",
+                     nbytes(srows) + nbytes(want) + 4,
+                     library=lambda: torch.unique_consecutive(key, return_counts=True))
+    rec["library"] = "torch.unique_consecutive(return_counts=True) on the int64 key: heads and counts only"
+    # the kernel alone: the call also zeroes the tiles' status and reads the
+    # number of runs back
+    rec["device_ms"] = device_ms(into, "run_reduce_rows_kernel")
+    del key
+    skewed = {}
+    for name, sk in (("one run of 10^7 rows", None), ("all rows distinct", "ones"),
+                     ("runs of a tile +- 1", "tile"), ("a run of 70,000 rows", "long")):
+        if sk == "ones":
+            sl = torch.ones(n_obs, dtype=torch.int64, device=device)
+        elif sk == "tile":
+            sl = torch.tensor([2047, 2048, 2049], device=device).repeat(n_obs // 2047 // 3 + 1)
+        else:
+            sl = torch.randint(1, 48, (n_obs // 20,), generator=gen, device=device)
+            sl[sl.shape[0] // 4] = 10**7 if sk is None else 70_000
+        x = sorted_obs_rows(gen, n_obs, sl, device)
+        e = exact_err(f"run_reduce_rows {name}", lambda: (into(x=x).clone(),),
+                      lambda: (plain(x=x).clone(),))
+        skewed[name] = {"max_abs_err": e, "runs": int(into(x=x).shape[0]),
+                        "ms": min(time_ms(lambda: into(x=x)) for _ in range(2))}
+        if sk == "long":
+            check(int(into(x=x)[:, w].max()) >> 8 == 65535, "a run past 65535 rows did not saturate")
+        del x
+    rec.update(max_abs_err=max([rec["max_abs_err"]] + [v["max_abs_err"] for v in skewed.values()]),
+               skewed=skewed, label_ops_checked=["first", "min", "sum"],
+               replaces_also="tpu_debruijn/filter.py:1195 and count_kmers' run bounds, counts, head gathers")
+    log(f"phase 2: run_reduce_rows {rec['ms']:.4f} ms, " + json.dumps(skewed))
+    rows.append(rec)
+    del srows, out, want, into, plain
+    torch.cuda.empty_cache()
+
+    # msp_scan_reads: one phase 9 source block of random reads
+    l = -(-READ_LEN // 16) * 16
+    block = -(-n_reads // N_SHARDS)
+    k, p = K, P_MSP
+    bases = torch.randint(0, 4, (block, l), generator=gen, dtype=torch.uint8, device=device)
+    lk = l - k + 1
+    scan = lambda b=bases, pp=p, perm=None, rc=True: msp_scan_reads(b, k, pp, perm, rc)
+    scan_plain = lambda b=bases, pp=p, perm=None, rc=True: msp_scan_reads_plain(b, k, pp, perm, rc)
+    e = exact_err("msp_scan_reads", scan, scan_plain)
+    rec = kernel_row("msp_scan_reads", "msp_scan.cu", "tpu_debruijn/msp.py:145",
+                     scan, scan_plain, e, f"({block}, {l}) uint8 bases, k = {k}, p = {p}",
+                     nbytes(bases) + block * lk * (1 + 4 + 4))
+    rec["device_ms"] = device_ms(scan, "msp_scan_reads_kernel")
+    read, rising = rising_read(l, p)
+    sample = bases[:PERM_SAMPLE].cpu().numpy()
+    inv = torch.from_numpy(TM.inverse_frequency_score_table(p, sample)).to(device)
+    cases = {
+        "all-equal scores (poly-A reads)": dict(b=torch.zeros_like(bases)),
+        "rising scores (a rescan every step)": dict(
+            b=torch.from_numpy(read).to(device).expand(block, l).contiguous(),
+            perm=torch.from_numpy(rising).to(device), rc=False),
+        "p = 16": dict(pp=16),
+        "inverse-frequency table": dict(perm=inv),
+    }
+    skewed = {}
+    for name, kw in cases.items():
+        e2, ms2, plain2 = timed_exact(f"msp_scan_reads {name}", lambda: scan(**kw),
+                                      lambda: scan_plain(**kw))
+        skewed[name] = {"max_abs_err": e2, "ms": ms2, "plain_ms": plain2}
+    rec.update(max_abs_err=max([e] + [v["max_abs_err"] for v in skewed.values()]), skewed=skewed,
+               library=None, library_none="no PyTorch call runs a scan recurrence",
+               replaces_also="tpu_debruijn/msp.py:114-126 (p-mer ranks and scores)")
+    log(f"phase 2: msp_scan_reads {rec['ms']:.4f} ms, " + json.dumps(skewed))
+    rows.append(rec)
+    return rows
+
+
 def gather_line(what, table, idx) -> dict:
     """gather_rows against its plain version (exact) and index_select on one
     table and index; its kernel row, with the bytes-once bound and, beside
@@ -968,7 +1128,7 @@ def profile_device_ms(fn, top: int = 6) -> dict:
            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda o: -o[1])
     return {"busy": sum(o[1] for o in ops), "dtoh": sum(o[1] for o in ops if "DtoH" in o[0]),
-            "top": ops[:top]}
+            "htod": sum(o[1] for o in ops if "HtoD" in o[0]), "top": ops[:top]}
 
 
 def assembly_forms(table) -> dict:
@@ -2317,12 +2477,15 @@ COUNTERS = {
     "canonical": "canonicalize", "extract_canonical": "extract_canonical",
     "gather_rows": "gather_rows", "take_along_axis": "take_along_axis",
     "successor_walk": "successor_walk", "rank_loop": "rank_loop", "rank_lists": "rank_lists",
-    "run_reduce": "run_reduce", "msp_scan": "msp_scan",
+    "run_reduce": "run_reduce", "msp_scan": "msp_scan", "run_reduce_rows": "run_reduce_rows",
+    "msp_scan_reads": "msp_scan_reads",
 }
 # the kernels each path must launch: every path counts, sorts and ranks;
 # the sharded paths also scan minimizers
-ON_PATH = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists", "run_reduce")
-ON_PATH_BY = {"sharded": ON_PATH + ("msp_scan",), "multiprocess": ON_PATH + ("msp_scan",)}
+ON_PATH = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists",
+           "run_reduce_rows")
+ON_PATH_BY = {"sharded": ON_PATH + ("msp_scan_reads",),
+              "multiprocess": ON_PATH + ("msp_scan_reads",)}
 
 MP_WORKER = r'''
 """One process of chip_smoke.start_workers: argv = repo root, spec file, rank.
@@ -2580,21 +2743,64 @@ def sharded_and_corpus_stages(raw, reps: int, device) -> dict:
     return out
 
 
+def count_tail_ms(reads, device) -> dict:
+    """The count's tail on the quick start's sorted rows, pass by pass (CUDA
+    events): the passes count_kmers ran before run_reduce_rows (run starts,
+    run bounds with their host read, counts, the exts OR by run_reduce, the
+    head rows' gather; the segmented min of data_reduce "min"/"max"), and
+    run_reduce_rows where the checkout has it."""
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import kernels as KN
+    from tpu_debruijn_torch import sorting as S
+    from tpu_debruijn_torch.kmer import KmerSpec
+
+    spec = KmerSpec(K)
+    w = spec.w
+    bases, lengths, seq_exts, labels = TF._read_batch(spec, reads, device)
+    args = (spec, bases, lengths, seq_exts, labels.to(torch.int32)[:, None], False)
+    srows = TF._sorted_rows(*args) if hasattr(TF, "_sorted_rows") else TF._sorted_runs(*args)[0]
+    del args, bases, lengths, seq_exts, labels
+    is_start = S.run_starts(srows[:, :w])
+    starts, ends = TF.run_bounds(is_start)
+    run = torch.cumsum(is_start, 0) - 1
+    passes = {
+        "run_starts": lambda: S.run_starts(srows[:, :w]),
+        "run_bounds": lambda: TF.run_bounds(is_start),
+        "counts": lambda: (ends - starts).clamp(max=65535).to(torch.int32),
+        "run_reduce": lambda: KN.run_reduce(ends, srows[:, w]),
+        "gather_heads": lambda: KN.gather_rows(srows, starts),
+    }
+    out = {name: min(time_ms(fn) for _ in range(2)) for name, fn in passes.items()}
+    out["parent_tail"] = sum(out.values())
+    out["segment_min (min/max only)"] = min(time_ms(
+        lambda: S.segment_min(srows[:, w + 1], run, starts.shape[0], "amin")) for _ in range(2))
+    if hasattr(KN, "run_reduce_rows"):
+        buf = torch.empty_like(srows)
+        out["run_reduce_rows"] = min(time_ms(lambda: KN.run_reduce_rows(srows, w, out=buf))
+                                     for _ in range(2))
+    out["rows"], out["runs"] = srows.shape[0], starts.shape[0]
+    return out
+
+
 def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     """``--stages``: the count and compress stages and both linkers, each
     ``reps`` times (host clock, ending in a synchronize), the card's busy
-    time of one call of each, the extraction kernel, the whole ranking and
-    gather_rows at the main path's shapes (CUDA events); the MSP and corpus
-    numbers of :func:`sharded_and_corpus_stages`.  Uses only entry points
+    time of one call of each and the count's peak bytes, the extraction
+    kernel, the whole ranking and gather_rows at the main path's shapes
+    (CUDA events); the count's tail pass by pass (:func:`count_tail_ms`);
+    the MSP and corpus numbers of :func:`sharded_and_corpus_stages`; phase
+    8's colored count (seconds and peak bytes).  Uses only entry points
     that every version of the port with a sharded path has."""
     import tpu_debruijn_torch as T
     from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as TF
     from tpu_debruijn_torch.kernels import _build, extract_canonical, gather_rows
     from tpu_debruijn_torch.kmer import KmerSpec
 
     _build.library()
     rng = np.random.default_rng(seed)
-    raw = sample_reads(rng, make_genome(rng, ECOLI_LEN, False), COVERAGE, READ_LEN)
+    genome = make_genome(rng, ECOLI_LEN, False)
+    raw = sample_reads(rng, genome, COVERAGE, READ_LEN)
     reads = [(r, 0, 0) for r in raw]
 
     def timed(fn):
@@ -2606,7 +2812,9 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
     count = lambda **kw: T.filter_kmers(reads, k=K, stranded=False, min_obs=2, device=device, **kw)
     out = {"count_s": [], "compress_s": [], "linker_plain_s": [], "linker_ordered_s": []}
     for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
         dt, table = timed(count)
+        out["count_peak_bytes"] = torch.cuda.max_memory_allocated()
         out["count_s"].append(dt)
         out["compress_s"].append(timed(lambda: T.compress_kmers(table, device=device))[0])
     ordered = count(data_reduce="obs_min")
@@ -2625,7 +2833,22 @@ def stage_times(seed: int, reps: int = 3, device="cuda") -> dict:
         "linker_ordered": profile_device_ms(linkers["linker_ordered_s"]),
     }
     del table, ordered
+    out["count_tail_ms"] = count_tail_ms(reads, device)
+    torch.cuda.empty_cache()
     out.update(sharded_and_corpus_stages(raw, reps, device))
+    # phase 8's colored count: four strains' reads labelled by strain
+    _, reads8, labels8 = strain_reads(rng, genome)
+    items = [(r, 0, int(lab)) for r, lab in zip(reads8, labels8)]
+    del reads8, labels8
+    out["colored_count_s"] = []
+    for _ in range(reps):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["colored_count_s"].append(timed(lambda: TF.filter_kmers_set_arrays(
+            items, K, stranded=False, min_obs=2, device=device))[0])
+        out["colored_count_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del items
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -2709,6 +2932,8 @@ def main(argv=None) -> int:
     rows += phase_pointer_kernels(gen, 2 * n_kmers, "cuda")
     torch.cuda.empty_cache()
     rows += phase_scan_kernels(gen, n_reads, n_reads * (READ_LEN - K + 1), "cuda")
+    torch.cuda.empty_cache()
+    rows += phase_fused_kernels(gen, n_reads, n_reads * (READ_LEN - K + 1), "cuda")
     torch.cuda.empty_cache()
 
     # every wrapper counts its launches; the kernels each path must launch

@@ -22,6 +22,8 @@ from tpu_debruijn_torch.kernels import (
     gather_rows_plain,
     msp_scan,
     msp_scan_plain,
+    msp_scan_reads,
+    msp_scan_reads_plain,
     rank_lists,
     rank_lists_plain,
     rank_loop,
@@ -29,6 +31,8 @@ from tpu_debruijn_torch.kernels import (
     rank_round_plain,
     run_reduce,
     run_reduce_plain,
+    run_reduce_rows,
+    run_reduce_rows_plain,
     successor_walk,
     successor_walk_plain,
     take_along_axis,
@@ -577,7 +581,7 @@ def test_msp_scan_kernel_matches_plain(cuda, kind, r, n, w):
 @pytest.mark.parametrize("k,p,perm", [(31, 8, False), (31, 16, False), (15, 5, True), (63, 12, False)])
 def test_msp_scan_batch_on_card(cuda, k, p, perm):
     """msp_scan_batch and the interval table on the card equal the CPU's,
-    the recurrence in one msp_scan launch."""
+    ranks, scores and the recurrence in one msp_scan_reads launch."""
     from tpu_debruijn_torch import filter as TF
     from tpu_debruijn_torch import msp as TM
 
@@ -587,9 +591,9 @@ def test_msp_scan_batch_on_card(cuda, k, p, perm):
     bases, lengths = TF.pad_reads(seqs, min_len=k, pad_to=16)
     table = rng.permutation(4**p).astype(np.int32) if perm else None
     b, l = torch.from_numpy(bases), torch.from_numpy(lengths)
-    before = msp_scan.launches
+    before = msp_scan_reads.launches, msp_scan.launches
     got = TM.msp_scan_batch(k, p, b.to(cuda), l.to(cuda), table)
-    assert msp_scan.launches == before + 1
+    assert (msp_scan_reads.launches, msp_scan.launches) == (before[0] + 1, before[1])
     for g, x in zip(got, TM.msp_scan_batch(k, p, b, l, table)):
         assert torch.equal(g.cpu(), x)
     iv = TM.msp_intervals_device(k, p, b.to(cuda), l.to(cuda), table)
@@ -651,9 +655,10 @@ def test_run_reduce_empty_and_refusals(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("data_reduce", ["sum", "label_first"])
 def test_count_reduces_runs_in_one_launch(cuda, data_reduce):
-    """count_kmers on the card makes one run_reduce launch (exts OR, and the
-    label sum with "sum") and gives the CPU's table; the colored count and
-    the pair rollup use it too."""
+    """count_kmers on the card makes one run_reduce_rows launch (its whole
+    tail, the label sum with "sum") and no run_reduce launch, and gives the
+    CPU's table; the colored count is one run_reduce_rows launch and the
+    pair rollup one run_reduce launch."""
     from tpu_debruijn_torch import filter as TF
     from tpu_debruijn_torch import table_to_numpy
 
@@ -663,15 +668,140 @@ def test_count_reduces_runs_in_one_launch(cuda, data_reduce):
              for s in rng.integers(0, len(genome) - 150, 600)]
     reads.append((np.zeros(150, np.uint8), 255, -5))  # a poly-A run of 120 observations
     kw = dict(stranded=False, min_obs=1, data_reduce=data_reduce)
-    before = run_reduce.launches
+    before = run_reduce_rows.launches, run_reduce.launches
     table = TF.filter_kmers(reads, 31, device=cuda, **kw)
-    assert run_reduce.launches == before + 1
+    assert (run_reduce_rows.launches, run_reduce.launches) == (before[0] + 1, before[1])
     got, want = table_to_numpy(table), table_to_numpy(TF.filter_kmers(reads, 31, device="cpu", **kw))
     assert all(np.array_equal(got[x], want[x]) for x in got)
-    before = run_reduce.launches
+    before = run_reduce_rows.launches, run_reduce.launches
     sets = TF.filter_kmers_set_arrays(reads, 31, device=cuda)
-    assert run_reduce.launches == before + 2  # the pair count, then the rollup
+    # the pair count, then the rollup
+    assert (run_reduce_rows.launches, run_reduce.launches) == (before[0] + 1, before[1] + 1)
     want_sets = TF.filter_kmers_set_arrays(reads, 31, device="cpu")
     got, want = table_to_numpy(sets[0]), table_to_numpy(want_sets[0])
     assert all(np.array_equal(got[x], want[x]) for x in want)
     assert all(torch.equal(g.cpu(), x) for g, x in zip(sets[1:], want_sets[1:]))
+
+
+# the rows form of run_reduce: run lengths of each kind
+TILE_RUNS = [1023, 1024, 1025, 2047, 2048, 2049]  # a tile of 8-word / 4-word rows, +- 1
+
+
+def _run_lengths(rng, n: int, kind: str) -> np.ndarray:
+    if kind == "ones":
+        return np.ones(n, np.int64)
+    if kind == "one_big":  # one run of 90% of the rows among runs of one
+        big = max(1, int(0.9 * n))
+        lo = int(rng.integers(0, n - big + 1))
+        return np.array([1] * lo + [big] + [1] * (n - lo - big), np.int64)
+    if kind == "tile":
+        return np.resize(np.array(TILE_RUNS, np.int64), n // 1023 + 1)
+    lens = rng.geometric(1 / 24, n)  # 30x coverage: ~24 rows a kmer
+    if kind == "long":  # and one run past 65535 rows
+        lens[len(lens) // 3] = 70_000
+    return lens
+
+
+def _packed_rows(rng, n: int, w: int, kind: str, by_label: bool = False) -> torch.Tensor:
+    """(n, 4 or 8) int32 rows whose keys come in runs of ``kind``: distinct
+    neighbouring keys (word 0 a multiplicative hash of the run number), every
+    other word random (exts bytes with every bit, negative labels, nonzero
+    padding the kernel must ignore); with ``by_label`` labels of four values,
+    so label runs split kmer runs."""
+    rw = 4 if w <= 2 else 8
+    lens = _run_lengths(rng, n, kind)
+    run = np.repeat(np.arange(len(lens)), lens)[:n]
+    keys = rng.integers(-(1 << 31), 1 << 31, (len(lens), w)).astype(np.int64)
+    keys[:, 0] = (np.arange(len(lens), dtype=np.int64) * 2654435761) % (1 << 32)
+    rows = rng.integers(-(1 << 31), 1 << 31, (n, rw)).astype(np.int64)
+    rows[:, :w] = keys[run]
+    if by_label:
+        rows[:, w + 1] = rng.integers(-2, 2, n)
+    return torch.from_numpy(rows.astype(np.uint32).view(np.int32))
+
+
+def _rows_both(srows, w, by_label, label_op):
+    """The kernel into a separate out and in place, each one launch, against
+    the plain version: equal."""
+    want = run_reduce_rows_plain(srows.cpu(), w, by_label, label_op,
+                                 out=torch.empty_like(srows, device="cpu"))
+    before = run_reduce_rows.launches
+    out = torch.full_like(srows, -1)
+    got = run_reduce_rows(srows, w, by_label, label_op, out=out)
+    inplace = run_reduce_rows(srows, w, by_label, label_op)
+    assert run_reduce_rows.launches == before + (2 if srows.shape[0] else 0)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and inplace.data_ptr() == srows.data_ptr()
+    assert torch.equal(got.cpu(), want) and torch.equal(inplace.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ones", "one_big", "tile", "long"])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 1023, 2048, 2049, 100_000, 3_000_001])
+@pytest.mark.parametrize("w", [1, 2, 3, 4])
+def test_run_reduce_rows_kernel_matches_plain(cuda, w, n, kind):
+    """One launch over 16- and 32-byte rows; runs of one row, of ~24, of a
+    tile +- 1, one of 90% of the rows and one past 65535 rows (the count
+    saturates)."""
+    rng = np.random.default_rng(n + w)
+    _rows_both(_packed_rows(rng, n, w, kind).to(cuda), w, False, "first")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label_op", ["first", "min", "max", "sum", "none"])
+@pytest.mark.parametrize("by_label", [False, True])
+@pytest.mark.parametrize("w", [2, 3])
+def test_run_reduce_rows_label_ops(cuda, w, by_label, label_op):
+    rng = np.random.default_rng(w)
+    _rows_both(_packed_rows(rng, 200_000, w, "long", by_label).to(cuda), w, by_label, label_op)
+
+
+@pytest.mark.cuda
+def test_run_reduce_rows_empty_and_refusals(cuda):
+    rows = torch.zeros((0, 4), dtype=torch.int32, device=cuda)
+    before = run_reduce_rows.launches
+    assert run_reduce_rows(rows, 1).shape == (0, 4) and run_reduce_rows.launches == before
+    with pytest.raises(ValueError):
+        run_reduce_rows(torch.zeros((8, 8), dtype=torch.int32, device=cuda)[:, :4], 1)
+    with pytest.raises(ValueError):
+        run_reduce_rows(torch.zeros((8, 4), dtype=torch.int64, device=cuda), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "poly", "rising"])
+@pytest.mark.parametrize("score", ["rc", "forward", "permutation", "tied"])
+@pytest.mark.parametrize("r,l,k,p", [(1000, 160, 31, 8), (77, 97, 31, 8), (3, 3001, 31, 8),
+                                     (5, 3008, 31, 8),
+                                     (130, 31, 31, 8), (500, 160, 31, 16), (200, 160, 15, 5),
+                                     (200, 160, 63, 12), (64, 100, 64, 1)])
+def test_msp_scan_reads_kernel_matches_plain(cuda, r, l, k, p, score, kind):
+    """One launch; whole (R, Lk) arrays against the plain version, padding
+    included: 16-byte loads (L = 160, 3008) and byte loads (97, 3001), Lk = 1,
+    p = 16 (negative order keys), w = 64 (the ring above 48 KB), a
+    permutation table with and without ties, all-equal scores and rising
+    ones (a rescan every step)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(r + l + k + p)
+    perm = None
+    if score == "permutation" and p <= 15:
+        perm = rng.permutation(4**p).astype(np.int32)
+    elif score == "tied" and p <= 15:
+        perm = rng.integers(-3, 4, 4**p).astype(np.int32)
+    rc = score != "forward"
+    if kind == "rising" and p <= 15 and 4**p >= l - p + 1:
+        read, perm = chip_smoke.rising_read(l, p)
+        bases, rc = np.broadcast_to(read, (r, l)).copy(), False
+    elif kind == "poly":
+        bases = np.zeros((r, l), np.uint8)
+    else:
+        bases = rng.integers(0, 4, (r, l)).astype(np.uint8)
+    b = torch.from_numpy(bases)
+    before = msp_scan_reads.launches
+    got = msp_scan_reads(b.to(cuda), k, p, perm, rc)
+    assert msp_scan_reads.launches == before + 1
+    want = msp_scan_reads_plain(b, k, p, perm, rc)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.shape == x.shape == (r, l - k + 1) and torch.equal(g.cpu(), x)

@@ -79,8 +79,10 @@ checkpoints), ``compress`` (every policy; ``link_chains`` and
 kernels in ``kernels/``: the two kmer kernels, the gathers and pointer
 jumps that replace the Pallas gather probes, among them the doubling loop
 of chain linking in one launch, the ruling-set list ranking, and the two
-sequential scans of the JAX package: the count's per-run exts OR and sums
-(``run_reduce``) and the MSP scanner's recurrence (``msp_scan``).
+sequential scans of the JAX package, each one pass over what its stage
+holds: the count's whole tail over its sorted rows (``run_reduce_rows``;
+``run_reduce`` for columns with known run ends) and the MSP scanner from
+the read bases (``msp_scan_reads``; ``msp_scan`` over scores).
 
 The JAX package's static-shape machinery has no counterpart by design:
 see ROADMAP.md section 1 for each such name and where the port does its

@@ -18,8 +18,9 @@ as payload operands; ``torch.sort`` has none.  So each observation becomes
 one packed int32 row (:func:`pack_obs_rows`: the limbs' 32-bit words, exts,
 the label, padding to 16 or 32 bytes) and every per-observation move is one
 row gather (``kernels.gather_rows``): the valid-slot compaction and the
-sort permutation.  Each run's exts OR (and label or count sum) is one
-``kernels.run_reduce`` pass over the sorted rows' columns, read in place.
+sort permutation.  The count's whole tail (run starts, counts, the exts
+OR, each run's head row and reduced label) is one ``kernels.run_reduce_rows``
+pass over the sorted rows, which writes one row a run in place over them.
 
 :func:`filter_kmers_streaming` counts a corpus in chunks: each chunk's
 table is LSM-merged on the host (``merge="host"``), or joined into a
@@ -50,7 +51,7 @@ from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize as _canonicalize
 from tpu_debruijn_torch.kernels.extract_canonical import extract_canonical, extract_kmers
 from tpu_debruijn_torch.kernels.gather import gather_rows
-from tpu_debruijn_torch.kernels.run_reduce import run_reduce
+from tpu_debruijn_torch.kernels.run_reduce import COUNT_MAX, run_reduce, run_reduce_rows
 from tpu_debruijn_torch.kmer import M32, KmerSpec
 
 __all__ = [
@@ -84,9 +85,6 @@ __all__ = [
     "row_limbs",
     "unpack_2bit",
 ]
-
-COUNT_MAX = 65535  # counts saturate at u16, as in the reference
-
 
 def canonicalize(spec: KmerSpec, kmers: torch.Tensor, exts: torch.Tensor, stranded: bool):
     """min_rc_flip + Exts::rc on flip (filter.rs:190-196) over (..., W)
@@ -201,12 +199,11 @@ def row_limbs(rows: torch.Tensor, w: int) -> torch.Tensor:
     return rows[..., :w].to(torch.int64) & M32
 
 
-def _sorted_runs(spec: KmerSpec, bases, lengths, seq_exts, lab, stranded: bool,
-                 by_label: bool = False):
+def _sorted_rows(spec: KmerSpec, bases, lengths, seq_exts, lab, stranded: bool,
+                 by_label: bool = False) -> torch.Tensor:
     """The valid observations of a padded read batch as packed rows
     (:func:`pack_obs_rows` with ``lab``), stably sorted by kmer, or by
-    (kmer, label as uint32) with ``by_label``; returns (rows, run start
-    flags, run starts, run ends)."""
+    (kmer, label as uint32) with ``by_label``."""
     w = spec.w
     kmers, exts, valid = extract_canonical(spec, bases, lengths, seq_exts, stranded)
     rows = pack_obs_rows(kmers, exts, lab).reshape(-1, obs_row_words(w))
@@ -219,13 +216,7 @@ def _sorted_runs(spec: KmerSpec, bases, lengths, seq_exts, lab, stranded: bool,
         key = torch.cat([key, row_limbs(rows[:, w + 1 : w + 2], 1)], dim=1)
     perm = S.lex_argsort(key)
     del key
-    srows = gather_rows(rows, perm)
-    del rows, perm
-    # run boundaries on the key's words: equal words, equal limbs
-    is_start = S.run_starts(srows[:, :w])
-    if by_label and is_start.shape[0] > 1:
-        is_start[1:] |= srows[1:, w + 1] != srows[:-1, w + 1]
-    return (srows, is_start) + run_bounds(is_start)
+    return gather_rows(rows, perm)
 
 
 def run_bounds(is_start: torch.Tensor):
@@ -235,6 +226,11 @@ def run_bounds(is_start: torch.Tensor):
 
 
 DATA_REDUCE = ("label_first", "min", "max", "sum", "obs_min", "none")
+# what run_reduce_rows makes of a run's labels under each data_reduce: the
+# stable sort keeps each run's observations in slot order, so its head holds
+# the first label and the least slot index
+_LABEL_OP = {"label_first": "first", "min": "min", "max": "max", "sum": "sum",
+             "obs_min": "first", "none": "none"}
 
 
 def count_kmers(
@@ -271,27 +267,15 @@ def count_kmers(
                            device=bases.device).reshape(-1, lk)
     elif data_reduce != "none":
         lab = labels.to(torch.int32)[:, None]
-    srows, is_start, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts, lab, stranded)
+    srows = _sorted_rows(spec, bases, lengths, seq_exts, lab, stranded)
     del lab
-    counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
-    # the exts OR (and with "sum" the label sum) of each run, in one pass
-    # over the rows' columns in place
-    or_exts, label_sum = run_reduce(ends, srows[:, w],
-                                    srows[:, w + 1] if data_reduce == "sum" else None)
-    # the stable sort keeps each run's observations in slot order, so the
-    # run start holds the first label and the least slot index
-    urows = gather_rows(srows, starts)
+    # one row a run, in place over the front of srows ("sum" wraps in int32,
+    # as the JAX package's int32 scan does)
+    urows = run_reduce_rows(srows, w, label_op=_LABEL_OP[data_reduce])
     ukmers = row_limbs(urows, w)
-    if data_reduce == "none":
-        data = torch.zeros_like(counts)
-    elif data_reduce in ("min", "max"):
-        run = torch.cumsum(is_start, 0) - 1
-        data = S.segment_min(srows[:, w + 1], run, starts.shape[0], "a" + data_reduce)
-    elif data_reduce == "sum":  # wraps in int32, as the JAX package's int32 scan does
-        data = label_sum.to(torch.int32)
-    else:
-        data = urows[:, w + 1]
-    kept = (ukmers, or_exts, counts, data)
+    counts, or_exts = urows[:, w] >> 8, urows[:, w] & 0xFF
+    kept = (ukmers, or_exts, counts, urows[:, w + 1].contiguous())
+    del srows, urows
     if min_obs > 1:  # every kmer was observed at least once
         keep = torch.nonzero(counts >= min_obs).flatten()
         kept = [gather_rows(t, keep) for t in kept]
@@ -301,7 +285,7 @@ def count_kmers(
         kmers=kept[0],
         exts=kept[1],
         counts=kept[2],
-        data=kept[3].contiguous(),
+        data=kept[3],
         all_kmers=ukmers if report_all else None,
     )
 
@@ -314,12 +298,10 @@ def count_kmer_pairs(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
     ``labels``; filter.rs:68-101).  Returns (kmers (n, W) int64, labels,
     exts, counts), each (n,) int32, counts saturating at 65535."""
     w = spec.w
-    srows, _, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts,
-                                          labels.to(torch.int32)[:, None], stranded, by_label=True)
-    urows = gather_rows(srows, starts)
-    counts = (ends - starts).clamp(max=COUNT_MAX).to(torch.int32)
-    exts = run_reduce(ends, srows[:, w])[0]
-    return row_limbs(urows, w), urows[:, w + 1].contiguous(), exts, counts
+    srows = _sorted_rows(spec, bases, lengths, seq_exts, labels.to(torch.int32)[:, None],
+                         stranded, by_label=True)
+    urows = run_reduce_rows(srows, w, by_label=True)
+    return row_limbs(urows, w), urows[:, w + 1].contiguous(), urows[:, w] & 0xFF, urows[:, w] >> 8
 
 
 def _pair_keys(spec: KmerSpec, bases, lengths, seq_exts, labels, *, stranded: bool):
@@ -555,12 +537,13 @@ def filter_kmers_eq_classes(seqs, k: int, *, stranded: bool = False, min_obs: in
 
 def _sorted_obs(spec: KmerSpec, stranded: bool, bases, lengths, seq_exts, labels):
     """Every valid observation of a padded read batch, canonical and stably
-    sorted by kmer (:func:`_sorted_runs`, so each run is in read order), on
+    sorted by kmer (:func:`_sorted_rows`, so each run is in read order), on
     the host: (kmers (m, W) uint32, exts (m,) int32, labels (m,) int32, run
     starts, run ends)."""
     w = spec.w
-    srows, _, starts, ends = _sorted_runs(spec, bases, lengths, seq_exts,
-                                          labels.to(torch.int32)[:, None], stranded)
+    srows = _sorted_rows(spec, bases, lengths, seq_exts, labels.to(torch.int32)[:, None],
+                         stranded)
+    starts, ends = run_bounds(S.run_starts(srows[:, :w]))
     cpu = lambda t: t.cpu().numpy()
     return (KM.to_numpy(row_limbs(srows, w)), cpu(srows[:, w]), cpu(srows[:, w + 1]),
             cpu(starts), cpu(ends))

@@ -17,7 +17,12 @@ from tpu_debruijn_torch.kernels.gather import (
     take_along_axis,
     take_along_axis_plain,
 )
-from tpu_debruijn_torch.kernels.msp_scan import msp_scan, msp_scan_plain
+from tpu_debruijn_torch.kernels.msp_scan import (
+    msp_scan,
+    msp_scan_plain,
+    msp_scan_reads,
+    msp_scan_reads_plain,
+)
 from tpu_debruijn_torch.kernels.pointer_jump import (
     rank_lists,
     rank_lists_plain,
@@ -28,7 +33,12 @@ from tpu_debruijn_torch.kernels.pointer_jump import (
     successor_walk,
     successor_walk_plain,
 )
-from tpu_debruijn_torch.kernels.run_reduce import run_reduce, run_reduce_plain
+from tpu_debruijn_torch.kernels.run_reduce import (
+    run_reduce,
+    run_reduce_plain,
+    run_reduce_rows,
+    run_reduce_rows_plain,
+)
 
 __all__ = [
     "canonicalize",
@@ -41,6 +51,8 @@ __all__ = [
     "gather_rows_plain",
     "msp_scan",
     "msp_scan_plain",
+    "msp_scan_reads",
+    "msp_scan_reads_plain",
     "rank_lists",
     "rank_lists_plain",
     "rank_lists_rulers_plain",
@@ -49,6 +61,8 @@ __all__ = [
     "rank_round_plain",
     "run_reduce",
     "run_reduce_plain",
+    "run_reduce_rows",
+    "run_reduce_rows_plain",
     "successor_walk",
     "successor_walk_plain",
     "take_along_axis",

@@ -44,14 +44,14 @@ class KernelLibrary:
         self.cdll = ctypes.CDLL(path)
         self._functions = {}
 
-    def function(self, name: str, argtypes):
-        """The C entry point ``name``, resolved with its argument types on
-        first use and cached."""
+    def function(self, name: str, argtypes, restype=ctypes.c_int):
+        """The C entry point ``name``, resolved with its argument and result
+        types on first use and cached."""
         fn = self._functions.get(name)
         if fn is None:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             self._functions[name] = fn
         return fn
 

@@ -1,22 +1,28 @@
-"""Per-run reductions of sorted rows: the count's exts OR and sums.
+"""Per-run reductions of sorted rows: the count's run boundaries, counts,
+exts OR, head rows and labels.
 
 Kernel 6 of the port, ``csrc/run_reduce.cu``.  It replaces the JAX
 package's packed segmented suffix scans, plain XLA associative scans:
 ``seg_or_suffix8`` (``tpu_debruijn/sorting.py:316``, the exts OR of
 ``count_kmers``) and ``_seg_sum_or_suffix`` (``tpu_debruijn/filter.py:1195``,
-the count sum and exts OR of the corpus merge).  Both are read only at run
-starts, so the port computes the per-run totals.
+the count sum and exts OR of the corpus merge), with the run boundaries,
+counts, head rows and label reductions of the count around them.  Two forms:
 
-On the H100 the kernel is bound by device memory: it reads its columns in
-place from the sorted packed observation rows (a 4-byte word of each 16- or
-32-byte row), so no contiguous copy of a column is made.  It is one flat
-pass, a warp to 512 consecutive rows, whatever the run lengths: a warp-level
-segmented reduce, then one atomic a run and warp (``csrc/run_reduce.cu``).
+* :func:`run_reduce_rows`, the count's whole tail: one pass over the sorted
+  packed observation rows (``filter.pack_obs_rows``) that finds each run of
+  equal keys and writes one row a run, compacted, by default in place over
+  the front of the input.  One launch, one host read (the number of runs).
+* :func:`run_reduce`, for callers that hold columns and run ends: the OR of
+  one column's low byte and the sum of another over each run.
 
-:func:`run_reduce` launches the kernel for CUDA tensors and runs
-:func:`run_reduce_plain` (one cumulative count a bit and one cumulative sum,
-read at the run ends and differenced) for CPU tensors; ``run_reduce.launches``
-counts kernel launches.
+On the H100 both are bound by device memory.  The rows form reads each row
+once with 16-byte loads and finds run numbers by a decoupled look-back over
+tiles (a single pass, no atomics on outputs, whatever the run lengths); the
+ends form reads a 4-byte column in place, a warp to 512 consecutive rows.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (:func:`run_reduce_rows_plain`, :func:`run_reduce_plain`) for CPU
+tensors; ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,6 +39,15 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
+# (in, out, n, w, by_label, op, scratch, stream)
+_ROWS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+
+COUNT_MAX = 65535  # a run's count saturates at u16, as in the reference
+# what becomes of a run's label words, in the kernel's numbering
+LABEL_OPS = ("first", "min", "max", "sum", "none")
 
 
 def _rows(or_col, sum_col) -> torch.Tensor:
@@ -105,3 +120,114 @@ def run_reduce(ends: torch.Tensor, or_col: Optional[torch.Tensor] = None,
 
 
 run_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the rows form
+# ---------------------------------------------------------------------------
+
+
+def _rows_check(srows: torch.Tensor, w: int, label_op: str, out) -> torch.Tensor:
+    if label_op not in LABEL_OPS:
+        raise ValueError(f"run_reduce_rows: unknown label_op {label_op!r}")
+    if not 1 <= w <= 4:
+        raise ValueError(f"run_reduce_rows: rows of W = {w} limbs")
+    rw = 4 if w <= 2 else 8
+    if srows.dim() != 2 or srows.dtype != torch.int32 or srows.shape[1] != rw:
+        raise ValueError(f"run_reduce_rows: srows must be (n, {rw}) int32 packed rows")
+    out = srows if out is None else out
+    if (out.dim() != 2 or out.dtype != torch.int32 or out.shape[1] != rw
+            or out.shape[0] < srows.shape[0] or out.device != srows.device):
+        raise ValueError("run_reduce_rows: out must hold n rows like srows, on its device")
+    return out
+
+
+def _key(srows: torch.Tensor, w: int, by_label: bool) -> torch.Tensor:
+    return torch.cat([srows[:, :w], srows[:, w + 1 : w + 2]], dim=1) if by_label else srows[:, :w]
+
+
+def run_reduce_rows_plain(srows: torch.Tensor, w: int, by_label: bool = False,
+                          label_op: str = "first", out: Optional[torch.Tensor] = None):
+    """:func:`run_reduce_rows` in plain PyTorch: run starts by comparing
+    neighbours, then one reduction a field over the run numbers."""
+    out = _rows_check(srows, w, label_op, out)
+    n, dev = srows.shape[0], srows.device
+    if n == 0:
+        return out[:0]
+    key = _key(srows, w, by_label)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = (key[1:] != key[:-1]).any(dim=1)
+    starts = torch.nonzero(is_start).flatten()
+    u = starts.shape[0]
+    run = torch.cumsum(is_start, 0) - 1
+    counts = torch.bincount(run, minlength=u).clamp(max=COUNT_MAX).to(torch.int32)
+    exts = srows[:, w] & 0xFF
+    ors = torch.zeros(u, dtype=torch.int32, device=dev)
+    for b in range(8):
+        bit = torch.zeros(u, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, run, (exts >> b) & 1, "amax")
+        ors |= bit << b
+    lab = srows[:, w + 1]
+    if label_op in ("min", "max"):
+        data = torch.zeros(u, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, run, lab, "a" + label_op, include_self=False)
+    elif label_op == "sum":  # wraps in int32
+        data = torch.zeros(u, dtype=torch.int64, device=dev).index_add_(
+            0, run, lab.to(torch.int64)).to(torch.int32)
+    elif label_op == "first":
+        data = lab[starts]
+    else:
+        data = torch.zeros(u, dtype=torch.int32, device=dev)
+    heads = torch.zeros((u, srows.shape[1]), dtype=torch.int32, device=dev)
+    heads[:, :w] = srows[starts, :w]
+    heads[:, w] = (counts << 8) | ors
+    heads[:, w + 1] = data
+    out[:u] = heads
+    return out[:u]
+
+
+def run_reduce_rows(srows: torch.Tensor, w: int, by_label: bool = False,
+                    label_op: str = "first", out: Optional[torch.Tensor] = None):
+    """Reduce each run of equal keys of sorted packed observation rows
+    (``filter.pack_obs_rows``: (n, 4) int32 at W <= 2, (n, 8) at W = 3, 4)
+    to one row.
+
+    A run is a maximal range of rows with equal keys: the W limb words, and
+    with ``by_label`` also the label word (word W + 1).  Run r's row, at
+    ``out[r]``: its key words; in word W, ``(min(count, 65535) << 8) |`` the
+    OR of the low bytes of its exts words; in word W + 1 its label words
+    reduced by ``label_op``: "first" (the head's; the stable sort keeps the
+    first observation there), "min" / "max" (signed), "sum" (wrapping in
+    int32) or "none" (0); zero elsewhere.
+
+    ``out`` (capacity n rows) defaults to ``srows``: the runs are written in
+    place over its front, and the rest of ``srows`` is left undefined.
+    Returns ``out[:u]``, u the number of runs: one launch and one host read.
+    """
+    out = _rows_check(srows, w, label_op, out)
+    if not srows.is_cuda:
+        if srows.is_cpu:
+            return run_reduce_rows_plain(srows, w, by_label, label_op, out)
+        raise ValueError(f"run_reduce_rows: no kernel for device {srows.device}")
+    n, rw = srows.shape
+    if n >= 1 << 31:
+        raise ValueError("run_reduce_rows: the kernel takes fewer than 2^31 rows")
+    for t in (srows, out):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("run_reduce_rows: rows must be contiguous and 16-byte aligned")
+    if n == 0:
+        return out[:0]
+    lib = _build.library()
+    words = lib.function("tdb_run_reduce_rows_scratch", [ctypes.c_int64, ctypes.c_int],
+                         ctypes.c_int64)
+    scratch = torch.empty(words(n, rw), dtype=torch.int32, device=srows.device)
+    fn = lib.function("tdb_run_reduce_rows", _ROWS_ARGTYPES)
+    _build.check("tdb_run_reduce_rows", fn(
+        srows.data_ptr(), out.data_ptr(), n, w, int(by_label), LABEL_OPS.index(label_op),
+        scratch.data_ptr(), _build.stream_ptr(srows.device),
+    ))
+    run_reduce_rows.launches += 1
+    return out[: int(scratch[1])]
+
+
+run_reduce_rows.launches = 0

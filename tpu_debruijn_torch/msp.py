@@ -4,14 +4,12 @@ Counterpart of ``tpu_debruijn/msp.py`` (rust-debruijn's msp.rs: Scanner
 :159-277, msp_sequence :279-324; MSPKmerCounter, Li 2015).  The same
 semantics: the MinPos tie-break prefers the *rightmost* position on equal
 scores (msp.rs:127-141), and a new minimum is taken mid-window only when it
-is strictly smaller (msp.rs:237-248).  Computed as
-
-* the p-mer ranks of every read position by the plain kmer extractor
-  (``kernels.extract_canonical.extract_kmers``),
-* the scanner's recurrence over the kmer positions of every read (JAX's
-  ``lax.scan``): on a CUDA tensor one launch of ``kernels.msp_scan``
-  (``csrc/msp_scan.cu``), on a CPU tensor its plain version, a windowed
-  minimum and a loop carrying every read's (value, position) state.
+is strictly smaller (msp.rs:237-248).  The p-mer ranks and scores of
+every read position and the scanner's recurrence over its kmer positions
+(JAX's ``lax.scan``) are one call of ``kernels.msp_scan_reads``: on a CUDA
+tensor one launch of ``csrc/msp_scan.cu`` from the read bases, on a CPU
+tensor its plain version (ranks by the plain kmer extractor, a windowed
+minimum and a loop carrying every read's (value, position) state).
 
 Every kmer of a read lands in exactly one interval; intervals hold p to
 2k - p bases; an interval's bucket is its rc-canonical minimizer rank
@@ -32,67 +30,14 @@ import numpy as np
 import torch
 
 from tpu_debruijn_torch import kmer as KM
-from tpu_debruijn_torch.filter import as_tensor, pad_reads
-from tpu_debruijn_torch.kernels.extract_canonical import extract_kmers
-from tpu_debruijn_torch.kernels.msp_scan import msp_scan
+from tpu_debruijn_torch.filter import pad_reads
+from tpu_debruijn_torch.kernels.msp_scan import msp_scan_reads, msp_scores, pmer_ranks  # noqa: F401
 from tpu_debruijn_torch.kmer import M32, KmerSpec
-
-_SIGN = -(2**31)
-
-
-def _i32_view(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> their int32 bit patterns."""
-    return (((x + 2**31) & M32) - 2**31).to(torch.int32)
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2^32)."""
     return x.to(torch.int64) & M32
-
-
-def pmer_ranks(p: int, bases: torch.Tensor, lengths: torch.Tensor):
-    """Ranks of all p-mers: (R, L - p + 1) int32 bit patterns (p <= 16),
-    and their validity.  At p = 16 a rank fills 32 bits, so its int32 view
-    may be negative; compare through :func:`_order_key`."""
-    if p > 16:
-        raise ValueError(f"p-mer ranks need p <= 16 (one 32-bit limb), got p={p}")
-    spec = KmerSpec(p)
-    zeros = torch.zeros(bases.shape[0], dtype=torch.int32, device=bases.device)
-    kmers, _, valid = extract_kmers(spec, bases, lengths, zeros)
-    return _i32_view(kmers[..., 0]), valid
-
-
-def _order_key(ranks: torch.Tensor) -> torch.Tensor:
-    """Order-preserving int32 key of uint32 rank bit patterns: flipping the
-    sign bit maps unsigned order onto signed order."""
-    return ranks ^ _SIGN
-
-
-def _rc_rank(p: int, ranks: torch.Tensor) -> torch.Tensor:
-    return _i32_view(KM.rc(KmerSpec(p), _u32(ranks)[..., None])[..., 0])
-
-
-def msp_scores(p: int, bases: torch.Tensor, lengths: torch.Tensor, permutation=None,
-               rc: bool = True):
-    """(ranks, scores), each (R, L - p + 1) int32: every p-mer's rank (its
-    uint32 bit pattern) and the score the scanner minimizes: the
-    permutation table's entry (p <= 15) or the rank's order key, the
-    lesser of the p-mer's and its reverse complement's with ``rc``."""
-    dev = bases.device
-    ranks, _ = pmer_ranks(p, bases, lengths)
-    if permutation is not None:
-        if p > 15:
-            raise ValueError("permutation scoring requires p <= 15 (int32 table indexing)")
-        perm = as_tensor(permutation, torch.int32, dev)
-        score = lambda rk: torch.index_select(perm, 0, rk.reshape(-1)).reshape(rk.shape)
-        scores = score(ranks)
-        if rc:
-            scores = torch.minimum(scores, score(_rc_rank(p, ranks)))
-    else:
-        scores = _order_key(ranks)
-        if rc:
-            scores = torch.minimum(scores, _order_key(_rc_rank(p, ranks)))
-    return ranks, scores
 
 
 def msp_scan_batch(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
@@ -106,12 +51,9 @@ def msp_scan_batch(k: int, p: int, bases: torch.Tensor, lengths: torch.Tensor,
     (4^p,) score table (p <= 15), as in JAX.
     """
     lk = bases.shape[1] - k + 1
-    dev = bases.device
-    ranks, scores = msp_scores(p, bases, lengths, permutation, rc)
-    flags, _, mposs = msp_scan(scores, k - p + 1)
-    pos = torch.arange(lk, dtype=torch.int32, device=dev)[None, :]
+    flags, min_rank, mposs = msp_scan_reads(bases, k, p, permutation, rc)
+    pos = torch.arange(lk, dtype=torch.int32, device=bases.device)[None, :]
     valid = pos <= (lengths.to(torch.int32)[:, None] - k)
-    min_rank = torch.take_along_dim(ranks, mposs.clamp(0, ranks.shape[1] - 1).long(), dim=1)
     return flags & valid, min_rank, mposs, valid
 
 
