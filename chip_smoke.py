@@ -49,7 +49,8 @@ Phases; any failure raises and the script exits non-zero:
    written to a FASTQ file.  Checks: the kmer kernels, gather_rows,
    run_reduce_rows, rank_lists and rank_loop launched (one rank_loop per
    ranking; its rounds are read from the device count; every path is held
-   to its own list, ON_PATH_BY: msp_scan_reads on the sharded paths only), gather_rows in the count and
+   to its own list, ON_PATH_BY: msp_scan_reads on the sharded paths and
+   phase 12's only), gather_rows in the count and
    compress stages and in resolve_edges (called once more on the table
    after the counts are read), rank_lists never took its round path, the
    table lies on the card, every table kmer is in exactly one unitig, every
@@ -76,7 +77,10 @@ Phases; any failure raises and the script exits non-zero:
    colored / policy path on labeled reads (set, eq-class and summarizer
    filters, color-set, rich, ScmapCompress and no-exts compression,
    inferred and censored exts, the GFA bytes of from_flat_output):
-   identical outputs (policy_outputs, which the card tests also run).
+   identical outputs (policy_outputs, which the card tests also run); and
+   the error-handling path on a 20 kb genome's reads with sequencing
+   errors (error_outputs: compress, compress_graph, remove_censored_exts
+   and clean_tips at min_obs 1 and 2): identical GFA bytes.
 7. The corpus path on phase 3's FASTQ file: stream_fastx_blocks ->
    filter_kmers_streaming(merge="device") in bench.py's 64 batches, the
    table equal to phase 3's bit for bit; the same reads as per-read tuples
@@ -164,6 +168,30 @@ Phases; any failure raises and the script exits non-zero:
    the ranks ("multiprocess"); prints each rank's stage seconds, peak
    device memory, bytes exchanged and gathered, shard unitigs and wall
    time, beside phase 9's one-process call.
+12. The error-handling path at full width: phase 3's genome, 150 bp reads
+   at 30x (928,331, half reverse-complemented) with sequencing errors
+   (sample_error_reads: substitutions rising along the read from 0.1% to
+   0.9%, one-base insertions and deletions at 0.01% a base), written to a
+   FASTQ file; k = 31, unstranded, at min_obs 1 and 2.  Checks: the table
+   equals a plain numpy count of canonical kmer codes (kmers and counts);
+   the streamed count of the FASTQ file in 64 chunks equals it bit for bit,
+   and so does the union of assemble_sharded's shard tables (at min_obs =
+   2 but for the exts a shard drops onto kmers censored in its own census);
+   every table kmer lies in exactly one unitig with and without
+   remove_censored_exts; compress_graph of the one-batch graph, the graph
+   after remove_censored_exts, assemble_sharded (p = 8, 8 shards) and
+   compress_graph of it are compressed and equal as canonical sequence
+   sets; every node find_bad_nodes returns is a tip shorter than 2K,
+   clean_tips leaves a smaller compressed graph with one GFA S line a node,
+   the same set from the sharded graph; the min_obs = 2 table holds at
+   least 99.9% of the genome's kmers.  Launches are counted over all of
+   that ("errors", which must also launch msp_scan_reads); prints the
+   errors injected, table kmers and singletons, nodes before and after
+   the censor and clean_tips, tips, the seconds of every stage, the peaks
+   of the count and the compress, the card's busy time of the min_obs = 1
+   count and compress, and run_reduce_rows, rank_lists (and its ruler
+   level's rank_loop) and gather_rows at the phase's own shapes, each
+   exact against its plain version beside its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -204,6 +232,12 @@ SNP_EVERY = 1000  # one private substitution a strain per this many bases
 STRAIN_COVERAGE = 15
 SMALL_READS = 20_000  # phase 8's per-kmer and per-edge Python forms
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+# phase 12's sequencing errors (Illumina-like): substitutions a base, rising
+# along the read from the first rate to the second; one-base insertions and
+# deletions, each at INDEL_RATE a base, in an ERR_WINDOW-base stretch
+SUB_RATE = (0.001, 0.009)
+INDEL_RATE = 1e-4
+ERR_WINDOW = 160
 _LUT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -238,6 +272,82 @@ def sample_reads(rng, genome: np.ndarray, coverage: int, read_len: int) -> np.nd
     flip = rng.random(n) < 0.5
     reads[flip] = 3 - reads[flip, ::-1]
     return reads
+
+
+def sample_error_reads(rng, genome: np.ndarray, coverage: int, read_len: int):
+    """(n, read_len) reads at ``coverage`` with sequencing errors, half
+    reverse-complemented, and the errors injected (a dict of counts).
+
+    Each read starts as an ERR_WINDOW-base stretch of ``genome``.  One-base
+    deletions and insertions each hit a window base at INDEL_RATE (a
+    deletion drops the base, an insertion puts a uniform base after it);
+    the result is cut to ``read_len``.  After the strand flip, each base
+    is substituted at a rate rising linearly along the read from
+    SUB_RATE[0] to SUB_RATE[1], by one of the other three bases, uniform.
+    The draws, in this order: starts, deletions, insertions, inserted bases,
+    flips, substitutions, their shifts (tests/test_torch_errors.py's
+    per-read twin makes the same reads from them)."""
+    n = -(-coverage * len(genome) // read_len)
+    win = ERR_WINDOW
+    starts = rng.integers(0, len(genome) - win + 1, n)
+    stretch = genome[starts[:, None] + np.arange(win)[None, :]]
+    dele = rng.random((n, win), dtype=np.float32) < INDEL_RATE
+    ins = rng.random((n, win), dtype=np.float32) < INDEL_RATE
+    ins_base = rng.integers(0, 4, (n, win), dtype=np.uint8)
+    reads = stretch[:, :read_len].copy()
+    n_del = n_ins = 0
+    for i in np.nonzero((dele | ins).any(axis=1))[0]:
+        # window base j, then its inserted base: slots 2j and 2j + 1
+        slots = np.stack([stretch[i], ins_base[i]], axis=1).reshape(-1)
+        keep = np.stack([~dele[i], ins[i]], axis=1).reshape(-1)
+        kept = np.nonzero(keep)[0][:read_len]
+        check(kept.shape[0] == read_len, "a read lost more bases than its window holds")
+        reads[i] = slots[kept]
+        used = kept[-1] // 2 + 1  # window bases the read reached
+        n_del += int(dele[i, :used].sum())
+        n_ins += int(ins[i, : (kept[-1] + 1) // 2].sum())
+    del stretch, dele, ins, ins_base
+    flip = rng.random(n) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    sub = rng.random((n, read_len), dtype=np.float32) < np.linspace(
+        *SUB_RATE, read_len, dtype=np.float32)
+    shift = rng.integers(1, 4, (n, read_len), dtype=np.uint8)
+    reads = np.where(sub, (reads + shift) & 3, reads).astype(np.uint8)
+    errors = {"reads": n, "substitutions": int(sub.sum()), "insertions": n_ins,
+              "deletions": n_del, "reads_without_error": int(n - (sub.any(axis=1).sum()))}
+    return reads, errors
+
+
+def numpy_rc(v: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complements of 2-bit packed uint64 kmers (k <= 32)."""
+    m = np.uint64
+    x = ~v
+    x = ((x & m(0x3333333333333333)) << m(2)) | ((x >> m(2)) & m(0x3333333333333333))
+    x = ((x & m(0x0F0F0F0F0F0F0F0F)) << m(4)) | ((x >> m(4)) & m(0x0F0F0F0F0F0F0F0F))
+    x = ((x & m(0x00FF00FF00FF00FF)) << m(8)) | ((x >> m(8)) & m(0x00FF00FF00FF00FF))
+    x = ((x & m(0x0000FFFF0000FFFF)) << m(16)) | ((x >> m(16)) & m(0x0000FFFF0000FFFF))
+    x = (x << m(32)) | (x >> m(32))
+    return x >> m(64 - 2 * k)
+
+
+def plain_count(reads: np.ndarray, k: int):
+    """A count of canonical kmer codes in numpy, independent of the port:
+    every kmer of every (n, l) read as a 2k-bit code, the lesser of it and
+    its reverse complement; returns (sorted unique codes, counts) as uint64
+    and int64 (k <= 32)."""
+    n, l = reads.shape
+    lk = l - k + 1
+    v = np.zeros((n, lk), np.uint64)
+    for j in range(k):
+        v <<= np.uint64(2)
+        v |= reads[:, j : j + lk]
+    v = v.reshape(-1)
+    v = np.minimum(v, numpy_rc(v, k))
+    v.sort()
+    head = np.ones(v.shape[0], bool)
+    head[1:] = v[1:] != v[:-1]
+    starts = np.nonzero(head)[0]
+    return v[starts], np.diff(np.append(starts, v.shape[0]))
 
 
 def write_fastq(path: str, reads: np.ndarray) -> None:
@@ -1035,13 +1145,21 @@ def quick_start(fastq: str, device, out_gfa: str):
 
 def unitig_kmers(spec, nodes, device) -> torch.Tensor:
     """Canonical kmers of every unitig, concatenated, as (N, W) int64."""
+    return seq_kmers(spec, np.concatenate([s for s, _, _ in nodes]),
+                     np.array([len(s) for s, _, _ in nodes], np.int64), device)
+
+
+def seq_kmers(spec, flat: np.ndarray, lens, device, starts=None) -> torch.Tensor:
+    """Canonical kmers of the sequences of ``flat`` (lengths ``lens``, each
+    at least K, at ``starts`` or packed), in order, as (N, W) int64."""
     from tpu_debruijn_torch import kmer as KM
 
-    flat = torch.from_numpy(np.concatenate([s for s, _, _ in nodes]).astype(np.int64)).to(device)
-    lens = np.array([len(s) for s, _, _ in nodes], np.int64)
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    starts = np.concatenate([o + np.arange(n - spec.k + 1) for o, n in zip(offs, lens)])
-    starts = torch.from_numpy(starts).to(device)
+    lens = np.asarray(lens, np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]) if starts is None else np.asarray(starts)
+    nk = lens - spec.k + 1
+    first = np.concatenate([[0], np.cumsum(nk)[:-1]])
+    starts = torch.from_numpy(np.arange(int(nk.sum())) + np.repeat(offs - first, nk)).to(device)
+    flat = torch.from_numpy(np.asarray(flat, np.int64)).to(device)
     nb_low = spec.k - 16 * (spec.w - 1)
     limbs = []
     for j in range(spec.w):
@@ -1268,7 +1386,7 @@ def phase_ordered(reads, nodes_main, counters, device) -> dict:
     }
 
 
-def phase_device_vs_cpu(rng, tmp) -> None:
+def phase_device_vs_cpu(rng, tmp, seed: int = 0) -> None:
     from tpu_debruijn_torch import table_to_numpy
 
     genome = make_genome(rng, 20_000, repeat_rich=True)
@@ -1316,6 +1434,16 @@ def phase_device_vs_cpu(rng, tmp) -> None:
     for name, want in got["cpu"].items():
         check(got["cuda"][name] == want, f"sharded path: CUDA and CPU {name} differ")
     log("phase 6: the sharded path CUDA == CPU, GFA bytes: "
+        + json.dumps({name: len(b) for name, b in got["cpu"].items()}))
+
+    # the error-handling path on reads with sequencing errors
+    erng = np.random.default_rng([seed, 6])  # leaves ``rng`` as the later phases draw it
+    err_reads = sample_error_reads(erng, make_genome(erng, ERR_SMALL_LEN, False), COVERAGE,
+                                   READ_LEN)[0]
+    got = {dev: error_outputs(err_reads, K, dev, tmp) for dev in ("cuda", "cpu")}
+    for name, want in got["cpu"].items():
+        check(got["cuda"][name] == want, f"error path: CUDA and CPU {name} differ")
+    log("phase 6: the error-handling path CUDA == CPU, GFA bytes: "
         + json.dumps({name: len(b) for name, b in got["cpu"].items()}))
 
     got = {dev: cli_outputs(fq, dev, tmp) for dev in ("cuda", "cpu")}
@@ -1920,7 +2048,24 @@ def ordered_rows(graph) -> list:
 
 def canon_seqs(nodes) -> list:
     """Unitigs [(bases, exts, data)] as sorted canonical sequence bytes."""
-    return sorted(min(s.tobytes(), (3 - s[::-1]).astype(np.uint8).tobytes()) for s, _, _ in nodes)
+    return canon_set(*flat_of(nodes)[:2]) if nodes else []
+
+
+def canon_set(flat: np.ndarray, lens, starts=None) -> list:
+    """The sequences of ``flat`` (lengths ``lens``, at ``starts`` or packed)
+    as sorted canonical bytes, each the lesser of itself and its reverse
+    complement, which is a slice of the whole buffer's."""
+    flat = np.ascontiguousarray(flat, np.uint8)
+    lens = np.asarray(lens, np.int64)
+    ends = np.cumsum(lens) if starts is None else np.asarray(starts, np.int64) + lens
+    fwd, rev, n = flat.tobytes(), (3 - flat[::-1]).tobytes(), flat.shape[0]
+    return sorted(min(fwd[e - m : e], rev[n - e : n - e + m])
+                  for e, m in zip(ends.tolist(), lens.tolist()))
+
+
+def graph_canon(graph) -> list:
+    seqs = graph.base.sequences
+    return canon_set(seqs._flat(), seqs.length, seqs.start)
 
 
 def check_shard_tables(what: str, tables, want: dict) -> int:
@@ -2481,11 +2626,12 @@ COUNTERS = {
     "msp_scan_reads": "msp_scan_reads",
 }
 # the kernels each path must launch: every path counts, sorts and ranks;
-# the sharded paths also scan minimizers
+# the sharded paths, and phase 12's cross-check through one, also scan minimizers
 ON_PATH = ("canonical", "extract_canonical", "gather_rows", "rank_loop", "rank_lists",
            "run_reduce_rows")
 ON_PATH_BY = {"sharded": ON_PATH + ("msp_scan_reads",),
-              "multiprocess": ON_PATH + ("msp_scan_reads",)}
+              "multiprocess": ON_PATH + ("msp_scan_reads",),
+              "errors": ON_PATH + ("msp_scan_reads",)}
 
 MP_WORKER = r'''
 """One process of chip_smoke.start_workers: argv = repo root, spec file, rank.
@@ -2690,6 +2836,385 @@ def phase_multiprocess(reads, table_main: dict, sharded_gfa: bytes, sharded_s: f
            "phase_s": time.perf_counter() - t_phase}
     log(f"phase 11 (two processes, {smi}): ranks' GFA equal, == phase 9's and the NCCL run's; "
         "shard tables == phase 3's; " + json.dumps(out))
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the error-handling path on reads with sequencing errors
+# ---------------------------------------------------------------------------
+
+ERR_MIN_OBS = (1, 2)
+ERR_SMALL_LEN = 20_000  # phase 6's genome of error reads, CUDA against the CPU
+RECOVERY_MIN = 0.999  # genome kmers the min_obs = 2 table must hold
+
+
+def tip_predicate(k: int):
+    """The README's tip test: a node shorter than 2K."""
+    return lambda node: node.len() < 2 * k
+
+
+def kmer_codes_of(limbs: torch.Tensor, k: int) -> np.ndarray:
+    """(n, W) int64 limbs of kmers (k <= 32) as uint64 2k-bit codes."""
+    code = limbs[:, 0]
+    for j in range(1, limbs.shape[1]):
+        code = (code << 32) | limbs[:, j]
+    return code.cpu().numpy().astype(np.uint64)
+
+
+def error_outputs(reads, k: int, dev, tmp: str) -> dict:
+    """The error-handling path's entry points on ``dev`` for ``reads`` at
+    ``k`` (unstranded), as GFA bytes at each min_obs of ERR_MIN_OBS:
+    filter_kmers -> compress_kmers -> graph, compress_graph of that graph,
+    the same path after remove_censored_exts, and clean_tips(len < 2K) of
+    the censored graph.  Phase 6 and the card tests hold the CUDA bytes to
+    the CPU ones."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import clean as CL
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import graph as G
+
+    path = os.path.join(tmp, f"errors_{torch.device(dev).type}.gfa")
+    items = [(r, 0, 0) for r in reads]
+    graph_of = lambda table: T.from_compress_output(
+        k, False, T.compress_kmers(table, device=dev)).finish(device=dev)
+    out = {}
+    for min_obs in ERR_MIN_OBS:
+        table = T.filter_kmers(items, k, stranded=False, min_obs=min_obs, device=dev)
+        graph = graph_of(table)
+        out[f"min_obs={min_obs} compress"] = gfa_of(graph, path)
+        out[f"min_obs={min_obs} compress_graph"] = gfa_of(G.compress_graph(graph, device=dev), path)
+        TF.remove_censored_exts(table, device=dev)
+        censored = graph_of(table)
+        out[f"min_obs={min_obs} remove_censored_exts"] = gfa_of(censored, path)
+        out[f"min_obs={min_obs} clean_tips"] = gfa_of(
+            CL.clean_tips(censored, tip_predicate(k), device=dev), path)
+    return out
+
+
+def error_kernel_rows(reads, table, device) -> list:
+    """run_reduce_rows, rank_lists (and its ruler level's rank_loop) and
+    gather_rows at phase 12's own shapes, each exact against its plain
+    version and timed by CUDA events as phase 2 times them:
+    the count's sorted rows of the error reads; the ranking carry that
+    link_chains builds for the min_obs = 1 table; the table search of
+    neighbor_bits (remove_censored_exts), 8 candidates a kmer."""
+    from tpu_debruijn_torch import compress as C
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import sorting as S
+    from tpu_debruijn_torch.kernels import pointer_jump as PJ
+    from tpu_debruijn_torch.kernels import (
+        gather_rows, gather_rows_plain, run_reduce_rows, run_reduce_rows_plain,
+    )
+
+    spec, w, rows = table.spec, table.spec.w, []
+    bases, lengths, seq_exts, labels = TF._read_batch(spec, [(r, 0, 0) for r in reads], device)
+    srows = TF._sorted_rows(spec, bases, lengths, seq_exts, labels.to(torch.int32)[:, None], False)
+    del bases, lengths, seq_exts, labels
+    out = torch.empty_like(srows)
+    into = lambda: run_reduce_rows(srows, w, out=out)
+    plain = lambda: run_reduce_rows_plain(srows, w, out=out)
+    e = exact_err("phase 12: run_reduce_rows", lambda: (into().clone(),), lambda: (plain().clone(),))
+    runs = int(into().shape[0])
+    check(runs == len(table), f"phase 12: {runs} runs for {len(table)} table kmers")
+    key = srows[:, :2].contiguous().view(torch.int64).flatten()
+    rec = kernel_row("run_reduce_rows", "run_reduce.cu", "tpu_debruijn/sorting.py:316", into, plain,
+                     e, f"phase 12: ({srows.shape[0]}, 4) int32 sorted rows, {runs} runs",
+                     nbytes(srows) + runs * 4 * 4 + 4,
+                     library=lambda: torch.unique_consecutive(key, return_counts=True))
+    rows.append(rec)
+    del srows, out, key
+    torch.cuda.empty_cache()
+
+    # the carry of link_chains on the min_obs = 1 table
+    edges = C.resolve_edges(spec, False, table.kmers, table.exts)
+    succ = C._succ_states(edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"])
+    m = succ.shape[0]
+    node = torch.arange(m // 2, device=device).repeat_interleave(2)
+    mnmo = (node << 1) | torch.arange(2, device=device).repeat(m // 2)
+    x = torch.stack([succ, succ >= 0, mnmo, torch.where(succ == -1, torch.arange(m, device=device), -1)],
+                    dim=1).to(torch.int32)
+    del edges, succ, node, mnmo
+    # the ruler level that rank_lists hands its one rank_loop launch: a spy
+    # in the module's name, which the wrapper also counts under
+    loop, level = PJ.rank_loop, []
+
+    def spy(y, *a, **kw):
+        level.append(y.clone())
+        return loop(y, *a, **kw)
+
+    spy.launches, spy.last_rounds = loop.launches, None
+    PJ.rank_loop = spy
+    try:
+        got = PJ.rank_lists(x)
+    finally:
+        PJ.rank_loop = loop
+    cuda = x.device.type == "cuda"
+    check(not cuda or (spy.launches == loop.launches + 1 and len(level) == 1),
+          "phase 12: the ranking took other than one rank_loop")
+    loop.launches = spy.launches
+    rounds = int(spy.last_rounds) if cuda else None
+    want = PJ.rank_lists_plain(x)
+    ends = want[:, 0] < 0
+    e = max_abs_diff((got[ends], got[~ends, 2]), (want[ends], want[~ends, 2]))
+    check(e == 0, "phase 12: rank_lists != the plain loop where a path ends or on a cycle minimum")
+    lists = int((x[:, 0] < 0).sum())
+    del got, want
+    rec = kernel_row("rank_lists", "list_rank.cu", "tpu_debruijn/compress.py:277",
+                     lambda: PJ.rank_lists(x), lambda: PJ.rank_lists_plain(x), e,
+                     f"phase 12: ({m}, 4) int32 carry, {lists} lists", 2 * nbytes(x))
+    rec.update(rank_loop_rounds=rounds, lists=lists)
+    rows.append(rec)
+    y = level[0] if cuda else x  # the plain ranking on the CPU has no ruler level
+    full = PJ._full_rounds(y.shape[0])
+    got, ran = loop(y, full)
+    want, t = PJ.rank_loop_plain(y, full)
+    e = max_abs_diff((got,), (want,))
+    check(e == 0 and int(ran) == t, "phase 12: rank_loop at the ruler level != the plain loop")
+    del got, want
+    rec = kernel_row("rank_loop", "pointer_jump.cu", "tpu_debruijn/compress.py:297",
+                     lambda: loop(y, full), lambda: PJ.rank_loop_plain(y, full), e,
+                     f"phase 12: ({y.shape[0]}, 4) int32, the ruler level of rank_lists' carry",
+                     2 * nbytes(y))
+    rec["rounds"] = t
+    log(f"phase 12: rank_lists {rows[-1]['ms']:.4f} ms over {m} states in {lists} lists; its "
+        f"ruler level {y.shape[0]} rows, rank_loop {rec['ms']:.4f} ms in {t} rounds")
+    rows.append(rec)
+    del x, y
+    torch.cuda.empty_cache()
+
+    # neighbor_bits' search of the table: 8n canonical candidates
+    from tpu_debruijn_torch import kmer as KM
+
+    n = len(table)
+    cands = torch.cat([(KM.extend_left if d == 0 else KM.extend_right)(spec, table.kmers, b)
+                       for d in (0, 1) for b in range(4)])
+    cands = TF._canonicalize(spec, cands, torch.zeros(8 * n, dtype=torch.int32, device=device))[0]
+    skey = S.pack_keys(table.kmers)[0].contiguous()
+    qkey = S.pack_keys(cands)[0].contiguous()
+    del cands
+    idx = torch.searchsorted(skey, qkey)
+    del qkey
+    g = gather_rows(skey, idx)
+    e = max_abs_diff((g,), (gather_rows_plain(skey, idx),))
+    check(e == 0 and torch.equal(torch.index_select(skey, 0, idx.clamp(max=n - 1)), g),
+          "phase 12: gather_rows != plain on the table search")
+    del g
+    rec = kernel_row("gather_rows", "gather.cu", "scripts/probe_pallas_gather.py:80",
+                     lambda: gather_rows(skey, idx), lambda: gather_rows_plain(skey, idx), e,
+                     f"phase 12: ({n},) int64 table keys, {8 * n} int64 indices",
+                     nbytes(idx) + 2 * idx.shape[0] * 8,
+                     library=lambda: torch.index_select(skey, 0, idx.clamp(max=n - 1)))
+    rec["random_floor_ms"] = (idx.shape[0] * (32 + 8 + 8)) / HBM_BYTES_PER_S * 1e3
+    rows.append(rec)
+    return rows
+
+
+def phase_errors(genome, seed: int, counters, smi: str, tmp: str, device="cuda") -> dict:
+    """Phase 12: the error-handling path at full width.  Reads of phase 3's
+    genome at 30x with sequencing errors (sample_error_reads), written to a
+    FASTQ file; at each min_obs of ERR_MIN_OBS: filter_kmers against a
+    plain numpy count, remove_censored_exts, compress_kmers with and
+    without it, the graph and its GFA, compress_graph, clean_tips(len < 2K);
+    the streamed count of the FASTQ file in 64 chunks; assemble_sharded
+    (k = 31, p = 8, 8 shards) with its shard tables and clean_tips.
+    Launches are counted over all of that (path "errors"); then the card's
+    busy time of the min_obs = 1 count and compress, and the kernels at the
+    phase's own shapes (error_kernel_rows)."""
+    import tpu_debruijn_torch as T
+    from tpu_debruijn_torch import clean as CL
+    from tpu_debruijn_torch import filter as TF
+    from tpu_debruijn_torch import graph as G
+    from tpu_debruijn_torch import parallel as TP
+    from tpu_debruijn_torch import sorting as S
+    from tpu_debruijn_torch import table_to_numpy
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 12])
+    t0 = time.perf_counter()
+    reads, errors = sample_error_reads(rng, genome, COVERAGE, READ_LEN)
+    fq = os.path.join(tmp, "errors.fq")
+    write_fastq(fq, reads)
+    host_s = {"reads_and_fastq": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    codes, counts = plain_count(reads, K)
+    host_s["plain_count"] = time.perf_counter() - t0
+    genome_codes = plain_count(genome[None, :], K)[0]
+    log(f"phase 12: errors injected {json.dumps(errors)}; plain count of "
+        f"{len(reads) * (READ_LEN - K + 1)} kmers: {codes.shape[0]} distinct")
+    items = [(r, 0, 0) for r in reads]
+    pred = tip_predicate(K)
+    mesh = TP.make_mesh(N_SHARDS, device=device)
+    chunk = -(-len(reads) // 64)  # bench.py's corpus model: 64 count batches
+    path = os.path.join(tmp, "errors.gfa")
+    out = {"reads": len(reads), "k": K, "coverage": COVERAGE, "read_len": READ_LEN,
+           "errors": errors, "host_s": host_s, "by_min_obs": {}}
+    table1 = None
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["rank_lists"].round_path = 0
+    for min_obs in ERR_MIN_OBS:
+        secs, rec = {}, {}
+        t_loop = time.perf_counter()
+
+        def stage(name, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            return res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["held_bytes"] = torch.cuda.memory_allocated()  # the min_obs = 1 table, at 2
+        table = stage("count", lambda: T.filter_kmers(items, K, stranded=False, min_obs=min_obs,
+                                                      device=device))
+        rec["peak_count_bytes"] = torch.cuda.max_memory_allocated()
+        # check 1: the table against the plain count
+        keep = counts >= min_obs
+        got_counts = table.counts.cpu().numpy()
+        check(np.array_equal(kmer_codes_of(table.kmers, K), codes[keep])
+              and np.array_equal(got_counts, np.minimum(counts[keep], 65535)),
+              f"phase 12 min_obs={min_obs}: the table != the plain numpy count")
+        want = table_to_numpy(table)
+        rec.update(table_kmers=len(table), singletons=int((got_counts == 1).sum()))
+        rec["singleton_share"] = rec["singletons"] / max(1, len(table))
+
+        censored = TF.KmerTable(table.spec, False, table.kmers, table.exts.clone(), table.counts,
+                                table.data)
+        stage("censor", lambda: TF.remove_censored_exts(censored, device=device))
+        rec["exts_censored"] = int((censored.exts != table.exts).sum())
+        torch.cuda.reset_peak_memory_stats()
+        nodes = stage("compress", lambda: T.compress_kmers(table, device=device))
+        rec["peak_compress_bytes"] = torch.cuda.max_memory_allocated()
+        nodes_c = stage("compress_censored", lambda: T.compress_kmers(censored, device=device))
+        # check 3: every table kmer in exactly one unitig, with and without the censor
+        for what, ns in (("", nodes), (" after remove_censored_exts", nodes_c)):
+            ukm = unitig_kmers(table.spec, ns, device)
+            check(ukm.shape[0] == len(table) and torch.equal(ukm[S.lex_argsort(ukm)], table.kmers),
+                  f"phase 12 min_obs={min_obs}: unitig kmers != table kmers{what}")
+            del ukm
+        graph = stage("graph", lambda: T.from_compress_output(K, False, nodes).finish(device=device))
+        gfa = stage("gfa", lambda: gfa_of(graph, path))
+        check(gfa.count(b"\nS\t") == len(graph), f"phase 12 min_obs={min_obs}: GFA S lines != nodes")
+        rec["gfa_bytes"] = len(gfa)
+        del gfa
+        if rec["exts_censored"]:
+            graph_c = stage("graph_censored",
+                            lambda: T.from_compress_output(K, False, nodes_c).finish(device=device))
+        else:  # nothing censored: the same table, so the same unitigs and graph
+            check(all(np.array_equal(a, b) for a, b in zip(flat_of(nodes_c), flat_of(nodes))),
+                  f"phase 12 min_obs={min_obs}: nothing censored, yet the unitigs differ")
+            graph_c = graph
+        # the graphs of check 4, each read before a call that sets its exts
+        sets = {"remove_censored_exts": graph_canon(graph_c)}
+        compressed = {"remove_censored_exts": graph_c.is_compressed()}
+        one = stage("compress_graph", lambda: G.compress_graph(graph, device=device))
+        sets["compress_graph of the one-batch graph"] = graph_canon(one)
+        compressed["compress_graph of the one-batch graph"] = one.is_compressed()
+        rec.update(nodes=len(graph), nodes_compress_graph=len(one),
+                   nodes_remove_censored_exts=len(graph_c), unitigs=len(nodes))
+        del nodes, nodes_c, graph, one
+        # check 5: the tips, then clean_tips
+        bad = stage("find_tips", lambda: CL.CleanGraph(pred).find_bad_nodes(graph_c))
+        lens = np.asarray(graph_c.base.sequences.length)
+        tester = CL.CleanGraph(pred)
+        check(all(tester.test_tip(graph_c, i) == i for i in bad) and bool((lens[bad] < 2 * K).all()),
+              f"phase 12 min_obs={min_obs}: a node find_bad_nodes returned is no tip")
+        n_in = len(graph_c)
+        cleaned = stage("clean_tips", lambda: CL.clean_tips(graph_c, pred, device=device))
+        gfa = stage("gfa_cleaned", lambda: gfa_of(cleaned, path))
+        check(gfa.count(b"\nS\t") == len(cleaned), f"phase 12 min_obs={min_obs}: cleaned GFA S lines")
+        check(cleaned.is_compressed() is None, f"phase 12 min_obs={min_obs}: the cleaned graph "
+              "is not compressed")
+        check(len(cleaned) < n_in or not bad, f"phase 12 min_obs={min_obs}: clean_tips removed "
+              f"no node of {len(bad)} tips")
+        rec.update(tips=len(bad), nodes_clean_tips=len(cleaned))
+        del gfa, graph_c
+
+        # the sharded path on the same reads
+        stats = {}
+        sharded = stage("assemble_sharded", lambda: TP.assemble_sharded(
+            reads, K, P_MSP, stranded=False, min_obs=min_obs, mesh=mesh, device=device,
+            stats=stats))
+        rec["assemble_sharded_stages"] = stage_summary(stats)
+        sets["assemble_sharded"] = graph_canon(sharded)
+        compressed["assemble_sharded"] = sharded.is_compressed()
+        again = stage("compress_graph_sharded", lambda: G.compress_graph(sharded, device=device))
+        sets["compress_graph of assemble_sharded"] = graph_canon(again)
+        compressed["compress_graph of assemble_sharded"] = again.is_compressed()
+        del again
+        # clean_tips sets the exts of the graph it cleans: last
+        cleaned_s = stage("clean_tips_sharded", lambda: CL.clean_tips(sharded, pred, device=device))
+        check(graph_canon(cleaned_s) == graph_canon(cleaned),
+              f"phase 12 min_obs={min_obs}: sharded and one-batch cleaned graphs differ")
+        del sharded, cleaned_s
+        # check 4
+        for name, pair in compressed.items():
+            check(pair is None, f"phase 12 min_obs={min_obs}: {name} is not compressed: {pair}")
+        first = sets["remove_censored_exts"]
+        for name, s in sets.items():
+            check(s == first, f"phase 12 min_obs={min_obs}: {name} != the censored graph "
+                  f"({len(s)} and {len(first)} unitigs)")
+        del sets, first
+        (_, tables, *_) = stage("sharded_tables", lambda: TP.sharded_tables(
+            reads, K, P_MSP, stranded=False, min_obs=min_obs, mesh=mesh, device=device))
+        rec["exts_differ_from_one_batch"] = check_shard_tables(
+            f"phase 12 min_obs={min_obs}", tables, want)
+        check(min_obs > 1 or rec["exts_differ_from_one_batch"] == 0,
+              "phase 12 min_obs=1: shard exts differ from the one-batch table")
+        del tables
+        # check 2: the streamed count of the FASTQ file
+        streamed = stage("streamed_count", lambda: T.filter_kmers_streaming(
+            T.stream_fastx_blocks(fq, block_reads=chunk), K, stranded=False, min_obs=min_obs,
+            data_reduce="none", merge="device", chunk_reads=chunk, device=device))
+        got = table_to_numpy(streamed)
+        check(all(np.array_equal(got[x], want[x]) for x in ("kmers", "exts", "counts", "data")),
+              f"phase 12 min_obs={min_obs}: the streamed table != the one-batch table")
+        del streamed, got
+
+        # check 6: genome recovery
+        tcodes = kmer_codes_of(table.kmers, K)
+        in_table = np.isin(genome_codes, tcodes, assume_unique=True)
+        seqs = cleaned.base.sequences
+        ccodes = kmer_codes_of(seq_kmers(table.spec, seqs._flat(), seqs.length, device,
+                                         seqs.start), K)
+        in_clean = np.isin(genome_codes, ccodes)
+        rec["genome_kmers"] = int(genome_codes.shape[0])
+        rec["genome_share_in_table"] = float(in_table.mean())
+        rec["genome_share_in_cleaned_graph"] = float(in_clean.mean())
+        rec["genome_kmers_lost_by_cleaning"] = int((in_table & ~in_clean).sum())
+        if min_obs == 2:
+            check(rec["genome_share_in_table"] >= RECOVERY_MIN,
+                  f"phase 12: the min_obs = 2 table holds {rec['genome_share_in_table']:.5f} of "
+                  "the genome's kmers")
+        rec["stage_s"] = secs
+        # the checks' own host time: what the loop took beside its stages
+        rec["checks_s"] = time.perf_counter() - t_loop - sum(secs.values())
+        out["by_min_obs"][min_obs] = rec
+        log(f"phase 12 min_obs={min_obs} ({smi}): " + json.dumps(rec))
+        if min_obs == 1:
+            table1 = table
+        del table, censored, cleaned, want
+        torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["rank_lists.round_path"] = counters["rank_lists"].round_path
+
+    out["device_ms"] = {
+        "count min_obs=1": profile_device_ms(lambda: T.filter_kmers(
+            items, K, stranded=False, min_obs=1, device=device), top=8),
+        "compress min_obs=1": profile_device_ms(lambda: T.compress_kmers(table1, device=device),
+                                                top=8),
+    }
+    # the count uploads its reads: a trace without that copy lost events
+    out["device_ms"]["count min_obs=1"]["complete"] = out["device_ms"]["count min_obs=1"]["htod"] > 0
+    out["kernels"] = error_kernel_rows(reads, table1, device)
+    del table1
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 (error-handling path, {smi}): " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("by_min_obs", "kernels")}))
     out["launches"] = launches
     return out
 
@@ -2966,7 +3491,7 @@ def main(argv=None) -> int:
         log("phase 5 (repeat-rich): " + json.dumps(rich))
 
         # phase 6
-        phase_device_vs_cpu(rng, tmp)
+        phase_device_vs_cpu(rng, tmp, args.seed)
 
         # phase 7: the corpus path on phase 3's file and reads
         corpus = phase_corpus(os.path.join(tmp, "ecoli.fq"), reads, table_main, nodes_main,
@@ -2998,6 +3523,11 @@ def main(argv=None) -> int:
                                    sharded["assemble_sharded_s"], smi, tmp)
         by_path["multiprocess"] = multi.pop("launches")
         del reads
+
+        # phase 12: the error-handling path on reads with sequencing errors
+        errors = phase_errors(genome, args.seed, counters, smi, tmp)
+        by_path["errors"] = errors.pop("launches")
+        rows += errors.pop("kernels")
 
         for path, launches in by_path.items():
             for name in ON_PATH_BY.get(path, ON_PATH):

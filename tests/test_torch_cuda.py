@@ -526,6 +526,32 @@ def test_compress_graph_cuda_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_error_path_cuda_matches_cpu(cuda, tmp_path):
+    """The error-handling path on reads with sequencing errors (chip_smoke.py's
+    phase 6 harness, a 20 kb genome at 30x): the GFA bytes after compress,
+    compress_graph, remove_censored_exts and clean_tips(len < 2K) at min_obs
+    1 and 2 equal the CPU's, and every kernel of the main path launched on
+    the card, one rank_loop a ranking."""
+    import chip_smoke
+    from tpu_debruijn_torch import kernels as KN
+
+    rng = np.random.default_rng(12)
+    genome = chip_smoke.make_genome(rng, chip_smoke.ERR_SMALL_LEN, repeat_rich=False)
+    reads = chip_smoke.sample_error_reads(rng, genome, 30, 150)[0]
+    counters = {name: getattr(KN, attr) for name, attr in chip_smoke.COUNTERS.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    KN.rank_lists.round_path = 0
+    got = chip_smoke.error_outputs(reads, 31, "cuda", str(tmp_path))
+    launched = {name: fn.launches for name, fn in counters.items()}
+    want = chip_smoke.error_outputs(reads, 31, "cpu", str(tmp_path))
+    assert want["min_obs=2 clean_tips"].count(b"\nS\t") > 10
+    assert [name for name in want if got[name] != want[name]] == []
+    assert all(launched[name] > 0 for name in chip_smoke.ON_PATH), launched
+    assert KN.rank_lists.round_path == 0 and launched["rank_loop"] == launched["rank_lists"]
+
+
+@pytest.mark.cuda
 def test_cli_and_walks_cuda_match_cpu(cuda, tmp_path):
     """assemble.run on the card equals its CPU run (chip_smoke.py's phase 6
     harness): GFA and JSON bytes, max_path and max_path_beam, and the arrays
