@@ -1,0 +1,18 @@
+"""Run one cell of the port's benchmark once; see portbench/README.md.
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+"""
+
+import time
+
+T_START = time.perf_counter()  # set-up counts from here: imports, build, data, warm-up
+
+import os  # noqa: E402
+import sys  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from portbench import harness  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(harness.main(t_start=T_START))
