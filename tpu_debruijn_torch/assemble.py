@@ -30,7 +30,7 @@ from tpu_debruijn_torch.clean import clean_tips
 from tpu_debruijn_torch.graph import DebruijnGraph, from_compress_output
 from tpu_debruijn_torch.io import read_fastx
 from tpu_debruijn_torch.parallel import assemble_sharded, make_mesh
-from tpu_debruijn_torch.parallel.shard import Stages
+from tpu_debruijn_torch.stages import Stages
 
 
 def parser() -> argparse.ArgumentParser:
@@ -63,7 +63,12 @@ def run(argv=None, stats: Optional[dict] = None) -> Optional[DebruijnGraph]:
     receives the seconds of each stage (``read_s``, ``count_s``,
     ``compress_s``, ``clean_tips_s``, ``export_s``; with ``--sharded``
     ``assemble_sharded_s`` and that call's own stages), each a list of one,
-    every stage ending in a device synchronize."""
+    every stage ending in a device synchronize
+    (:class:`~tpu_debruijn_torch.stages.Stages`).  Within ``count``
+    (not with ``--streaming``): ``filter.pad_s`` and ``filter.upload_s``;
+    within ``compress``: ``compress.nodes_s``, ``graph.add_s`` (the
+    per-node ``from_compress_output``) and ``graph.finish_s``; within
+    ``clean_tips``: ``clean.compress_graph_s``."""
     args = parser().parse_args(argv)
     dev = torch.device(args.device)
     stage = Stages(stats, dev)
@@ -91,15 +96,20 @@ def run(argv=None, stats: Optional[dict] = None) -> Optional[DebruijnGraph]:
                     memory_gb=args.memory_gb, device=dev)
             else:
                 table = F.filter_kmers([(r, 0, 0) for r in reads], args.k,
-                                       stranded=args.stranded, min_obs=args.min_obs, device=dev)
+                                       stranded=args.stranded, min_obs=args.min_obs, device=dev,
+                                       stats=stats)
         print(f"{len(table)} filtered kmers", file=sys.stderr)
         with stage("compress"):
-            nodes = C.compress_kmers(table, device=dev)
+            nodes = C.compress_kmers(table, device=dev, stats=stats)
             del table
-            graph = from_compress_output(args.k, args.stranded, nodes).finish(device=dev)
+            with stage("graph.add"):
+                base = from_compress_output(args.k, args.stranded, nodes)
+            with stage("graph.finish"):
+                graph = base.finish(device=dev)
     if args.clean_tips:
         with stage("clean_tips"):
-            graph = clean_tips(graph, lambda node: node.len() < 2 * args.k, device=dev)
+            graph = clean_tips(graph, lambda node: node.len() < 2 * args.k, device=dev,
+                               stats=stats)
     print(f"{len(graph)} unitigs", file=sys.stderr)
 
     with stage("export"):

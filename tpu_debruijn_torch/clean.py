@@ -14,6 +14,7 @@ import numpy as np
 
 from tpu_debruijn_torch import exts as E
 from tpu_debruijn_torch.graph import DebruijnGraph, Node, compress_graph
+from tpu_debruijn_torch.stages import Stages
 
 
 class CleanGraph:
@@ -39,7 +40,12 @@ class CleanGraph:
 
 
 def clean_tips(graph: DebruijnGraph, tip_predicate: Callable[[Node], bool], *,
-               data_reduce="sum_sat_u16", device="cuda") -> DebruijnGraph:
-    """Find the tips, censor them and re-compress on ``device``."""
+               data_reduce="sum_sat_u16", device="cuda",
+               stats: Optional[dict] = None) -> DebruijnGraph:
+    """Find the tips, censor them and re-compress on ``device``.
+    ``stats``, a dict, receives ``clean.compress_graph_s``, the
+    re-compression (:class:`~tpu_debruijn_torch.stages.Stages`); the rest
+    of the call finds the tips."""
     bad = CleanGraph(tip_predicate).find_bad_nodes(graph)
-    return compress_graph(graph, censor_nodes=bad, data_reduce=data_reduce, device=device)
+    with Stages(stats, device)("clean.compress_graph"):
+        return compress_graph(graph, censor_nodes=bad, data_reduce=data_reduce, device=device)

@@ -57,6 +57,7 @@ from tpu_debruijn_torch.kernels.canonical import canonicalize
 from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kernels.pointer_jump import rank_lists
 from tpu_debruijn_torch.kmer import KmerSpec
+from tpu_debruijn_torch.stages import Stages
 
 LEFT, RIGHT = E.LEFT, E.RIGHT
 
@@ -751,7 +752,7 @@ def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device
 
 def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = False,
                    data_field: str = "counts", spec: Optional[CompressionSpec] = None,
-                   device="cuda"):
+                   device="cuda", stats: Optional[dict] = None):
     """KmerTable -> list of unitigs [(bases, exts, data)] on ``device``
     (compress_kmers_with_hash, compression.rs:588).
 
@@ -762,6 +763,9 @@ def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = Fal
     on ``device`` (:func:`assemble_unitigs_device`) under every policy; the
     data folds there too for "sum_sat_u16", and on the host from each
     item's unitig and position for any other reduce (:func:`_fold_data`).
+    ``stats``, a dict, receives ``compress.nodes_s``: the tuple a unitig
+    made on the host once the unitigs are there
+    (:class:`~tpu_debruijn_torch.stages.Stages`).
     """
     if len(table) == 0:
         return []
@@ -780,7 +784,9 @@ def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = Fal
     )
     seq, out_len = assemble_unitigs_device(table.spec, kmers, chains, contrib)
     folded = _fold_data(data_reduce, data.to(device), chains)
-    return _nodes(seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy(), folded.tolist())
+    flat = seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy()
+    with Stages(stats, device)("compress.nodes"):
+        return _nodes(*flat, folded.tolist())
 
 
 def _fold_data(data_reduce, data: torch.Tensor, chains: Chains) -> np.ndarray:

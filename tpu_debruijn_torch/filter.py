@@ -53,6 +53,7 @@ from tpu_debruijn_torch.kernels.extract_canonical import extract_canonical, extr
 from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kernels.run_reduce import COUNT_MAX, run_reduce, run_reduce_rows
 from tpu_debruijn_torch.kmer import M32, KmerSpec
+from tpu_debruijn_torch.stages import Stages
 
 __all__ = [
     "CountFilter",
@@ -344,20 +345,30 @@ def filter_kmers(
     report_all: bool = False,
     data_reduce: str = "label_first",
     device="cuda",
+    stats: Optional[dict] = None,
 ) -> KmerTable:
     """Host wrapper: list of (bases, seq_exts, label) -> KmerTable on ``device``.
 
     Mirrors filter_kmers (filter.rs:139) with a CountFilter(min_obs)
     summarizer; counts are carried beside whatever ``data_reduce`` makes
-    of the labels.
+    of the labels.  ``stats``, a dict, receives the seconds of two stages
+    (:class:`~tpu_debruijn_torch.stages.Stages`): ``filter.pad_s`` (the
+    reads K long picked out and padded, their exts and labels, on the host)
+    and ``filter.upload_s`` (the four arrays to ``device``); the count
+    itself is the rest of the call.
     """
     spec = KmerSpec(k)
     device = torch.device(device)
-    items = [s for s in seqs if len(s[0]) >= k]
-    if not items:
+    stage = Stages(stats, device)
+    with stage("filter.pad"):
+        items = [s for s in seqs if len(s[0]) >= k]
+        host = _read_batch(spec, items, "cpu") if items else None  # host tensors, no copy
+    if host is None:
         return _empty_table(spec, stranded, device, report_all)
-    return count_kmers(spec, *_read_batch(spec, items, device), stranded=stranded,
-                       min_obs=min_obs, data_reduce=data_reduce, report_all=report_all)
+    with stage("filter.upload"):
+        batch = tuple(t.to(device) for t in host)
+    return count_kmers(spec, *batch, stranded=stranded, min_obs=min_obs,
+                       data_reduce=data_reduce, report_all=report_all)
 
 
 def as_tensor(a, dtype, device=None) -> torch.Tensor:

@@ -35,10 +35,8 @@ own unpadded (n_intervals, 2k - p) batch.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -59,6 +57,7 @@ from tpu_debruijn_torch.graph import (
 from tpu_debruijn_torch.kernels.gather import gather_rows
 from tpu_debruijn_torch.kmer import KmerSpec
 from tpu_debruijn_torch.parallel.mesh import LogicalMesh, make_mesh
+from tpu_debruijn_torch.stages import Stages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,27 +79,6 @@ class ShardPlan:
     @property
     def interval_len(self) -> int:
         return 2 * self.k - self.p  # msp.rs:292 bound
-
-
-class Stages:
-    """Host seconds by stage into ``stats`` (a dict; None times nothing).
-    A timed stage starts and ends with a device synchronize."""
-
-    def __init__(self, stats: Optional[dict], device: torch.device):
-        self.stats = stats
-        self.sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
-            else (lambda: None)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.stats is None:
-            yield
-            return
-        self.sync()
-        t0 = time.perf_counter()
-        yield
-        self.sync()
-        self.stats.setdefault(name + "_s", []).append(time.perf_counter() - t0)
 
 
 def source_blocks(n_reads: int, n_shards: int) -> List[tuple]:
@@ -386,10 +364,12 @@ def sharded_tables(
     Returns (plan, tables, chains, u_exts, contrib), each after the plan a
     list with one entry a shard; with ``stitch`` also the device stitch's
     node chains and final unitig exts.  ``stats``, a dict, receives the
-    seconds of each stage (``pad_reads_s``, ``msp_s``, ``exchange_s``,
-    ``count_s`` and ``compress_s`` a shard, ``stitch_s``, ``gather_s``
-    within it), the intervals a shard (``intervals``) and the unitigs a
-    shard (``shard_unitigs``).
+    seconds of each stage (``select_reads_s``, the list of the reads K
+    long; ``pad_reads_s``, ``msp_s``, ``exchange_s``, ``count_s`` and
+    ``compress_s`` a shard, ``stitch_s``, ``gather_s`` within it), the
+    intervals a shard (``intervals``) and the unitigs a shard
+    (``shard_unitigs``).  Each stage is also a profiler mark
+    (:mod:`tpu_debruijn_torch.stages`).
 
     On a distributed mesh (:func:`parallel.global_mesh`) ``reads`` are this
     process's own; it scans them in source blocks of its own, trades
@@ -402,7 +382,8 @@ def sharded_tables(
     mesh = _mesh(mesh, device)
     dev, n_shards = mesh.device, mesh.n_shards
     stages = Stages(stats, dev)
-    items = [np.asarray(s, np.uint8) for s in reads if len(s) >= k]
+    with stages("select_reads"):
+        items = [np.asarray(s, np.uint8) for s in reads if len(s) >= k]
     if _count_reads(len(items), mesh) == 0:
         raise ValueError("no reads of length >= k")
     plan = ShardPlan(k, p, stranded, min_obs, n_shards, cap_per_dest)
@@ -503,7 +484,11 @@ def assemble_sharded(
     with ``graph.compress_graph``.  Both give the same graph.  ``stats``:
     see :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
     unitigs) and ``final_s`` (the host side of the stitch and the final
-    graph).
+    graph), and within ``final_s`` with ``collective`` ``final.stitch_s``
+    (the chain pulls, ``stitch_flat`` and the data reduce) and
+    ``final.finish_s`` (the final graph's ``add_flat`` and ``finish``).
+    The shards' unitigs are added to the combined graph between the two
+    stages, untimed (a few array appends).
 
     On a distributed mesh each process assembles its own shards' unitigs
     and :func:`gather_unitigs` brings every shard's to every process (one
@@ -531,15 +516,19 @@ def assemble_sharded(
             return compress_graph(combined.finish(device=dev), data_reduce=data_reduce_compress,
                                   device=dev)
         gchains, final_exts = out[5], out[6]
-        g_uid, g_pos, g_flip = (x.cpu().numpy() for x in (gchains.uid, gchains.pos, gchains.flip))
-        g_n = gchains.n_unitigs
-        seqs = combined.sequences
-        seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length,
-                                              np.arange(len(combined)), g_uid, g_pos, g_flip, g_n)
-        if callable(data_reduce_compress):
-            data_red = C._fold_closure(data_reduce_compress, combined.data, g_uid, g_pos, g_n)
-        else:
-            data_red = C._reduce_np(data_reduce_compress, combined.data, g_uid, g_n)
-        final = BaseGraph(k, stranded)
-        final.add_flat(seq_flat, out_lengths, final_exts.cpu().numpy(), data_red)
-        return final.finish(device=dev)
+        with stages("final.stitch"):
+            g_uid, g_pos, g_flip = (x.cpu().numpy()
+                                    for x in (gchains.uid, gchains.pos, gchains.flip))
+            g_n = gchains.n_unitigs
+            seqs = combined.sequences
+            seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length,
+                                                  np.arange(len(combined)), g_uid, g_pos, g_flip,
+                                                  g_n)
+            if callable(data_reduce_compress):
+                data_red = C._fold_closure(data_reduce_compress, combined.data, g_uid, g_pos, g_n)
+            else:
+                data_red = C._reduce_np(data_reduce_compress, combined.data, g_uid, g_n)
+        with stages("final.finish"):
+            final = BaseGraph(k, stranded)
+            final.add_flat(seq_flat, out_lengths, final_exts.cpu().numpy(), data_red)
+            return final.finish(device=dev)
