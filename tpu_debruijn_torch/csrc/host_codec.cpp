@@ -15,6 +15,7 @@
 //   db_rc_codes            : reverse complement of a code buffer
 //   db_fastx_scan          : scan a FASTA/FASTQ buffer -> record offsets
 //   db_fastx_extract       : extract + encode one record's sequence
+//   db_fastx_extract_flat  : decode many records into one flat code buffer
 //   db_fastx_extract_batch : decode many records into 2-bit packed rows
 
 #include <cstdint>
@@ -139,6 +140,25 @@ int64_t db_fastx_extract(const uint8_t* buf, int64_t start, int64_t end,
     }
     if (n_invalid) *n_invalid += bad;
     return m;
+}
+
+// Flat extract: decode ``m`` records (given their [start, end) spans) one
+// after another into one dense 2-bit code buffer, exactly as m calls of
+// db_fastx_extract would, and write offsets[0..m] (offsets[0] = 0; record r
+// is codes[offsets[r], offsets[r + 1])).  The caller sizes codes by the sum
+// of the spans.  Returns the number of invalid (non-ACGT, encoded 0)
+// characters seen.
+int64_t db_fastx_extract_flat(const uint8_t* buf, const int64_t* rec_start,
+                              const int64_t* rec_end, int64_t m, uint8_t* codes,
+                              int64_t* offsets) {
+    int64_t bad = 0;
+    int64_t at = 0;
+    offsets[0] = 0;
+    for (int64_t r = 0; r < m; ++r) {
+        at += db_fastx_extract(buf, rec_start[r], rec_end[r], codes + at, &bad);
+        offsets[r + 1] = at;
+    }
+    return bad;
 }
 
 // Batched extract: decode ``m`` records (given their [start, end) spans)

@@ -29,7 +29,9 @@ def read_fastx(path: str, max_records: Optional[int] = None) -> List[np.ndarray]
     """Read all sequences of a FASTA/FASTQ(.gz) file as 2-bit code arrays.
 
     Non-ACGT characters are encoded as 0 (A), matching
-    DnaString::from_acgt_bytes (dna_string.rs:228).
+    DnaString::from_acgt_bytes (dna_string.rs:228).  With the host codec
+    the records are decoded in one native call (``fastx_extract_flat``) and
+    returned as views of one buffer, which never overlap.
     """
     data = _read_bytes(path)
     buf = np.frombuffer(data, np.uint8)
@@ -40,12 +42,21 @@ def read_fastx(path: str, max_records: Optional[int] = None) -> List[np.ndarray]
         rs, re_, n = N.fastx_scan(buf, cap)
         if n > cap:  # rescan with exact capacity
             rs, re_, n = N.fastx_scan(buf, n)
-        out = []
-        for i in range(min(n, max_records or n)):
-            codes, _ = N.fastx_extract(buf, int(rs[i]), int(re_[i]))
-            out.append(codes)
-        return out
+        m = min(n, max_records or n)
+        codes, offsets, _ = N.fastx_extract_flat(buf, rs[:m], re_[:m])
+        return _split(codes, offsets)
     return _read_fastx_py(data, max_records)
+
+
+def _split(codes: np.ndarray, offsets: np.ndarray) -> List[np.ndarray]:
+    """The records of one flat code buffer, as views of it."""
+    m = len(offsets) - 1
+    if m == 0:
+        return []
+    lengths = np.diff(offsets)
+    if (lengths == lengths[0]).all():  # equal lengths: the rows, made in C
+        return list(codes.reshape(m, int(lengths[0])))
+    return [codes[a:b] for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
 
 
 def _read_fastx_py(data: bytes, max_records: Optional[int]) -> List[np.ndarray]:

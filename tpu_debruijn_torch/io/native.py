@@ -77,6 +77,8 @@ def _load():
     lib.db_fastx_scan.argtypes = [u8p, ctypes.c_int64, i64p, i64p, ctypes.c_int64]
     lib.db_fastx_extract.restype = ctypes.c_int64
     lib.db_fastx_extract.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, u8p, i64p]
+    lib.db_fastx_extract_flat.restype = ctypes.c_int64
+    lib.db_fastx_extract_flat.argtypes = [u8p, i64p, i64p, ctypes.c_int64, u8p, i64p]
     lib.db_fastx_extract_batch.restype = ctypes.c_int64
     lib.db_fastx_extract_batch.argtypes = [u8p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64, i32p]
     _LIB = lib
@@ -187,11 +189,41 @@ def fastx_scan(buf: np.ndarray, max_records: int) -> Tuple[np.ndarray, np.ndarra
 
 
 def fastx_extract(buf: np.ndarray, start: int, end: int):
+    """Decode one record span; returns (codes, n_invalid).  Calls are
+    counted in ``fastx_extract.calls``."""
     lib = _load()
     codes = np.empty(end - start, np.uint8)
     bad = np.zeros(1, np.int64)
     m = lib.db_fastx_extract(_u8p(buf), start, end, _u8p(codes), _i64p(bad))
+    fastx_extract.calls += 1
     return codes[:m], int(bad[0])
+
+
+fastx_extract.calls = 0
+
+
+def fastx_extract_flat(buf: np.ndarray, rec_start: np.ndarray, rec_end: np.ndarray):
+    """Decode many record spans in one native call into one flat code
+    buffer: record ``r`` is ``codes[offsets[r]:offsets[r + 1]]``, the codes
+    :func:`fastx_extract` gives for its span.  Returns (codes, offsets,
+    n_invalid); ``offsets`` is int64 of length ``m + 1``.  Calls are counted
+    in ``fastx_extract_flat.calls``."""
+    lib = _load()
+    rs = np.ascontiguousarray(rec_start, np.int64)
+    re_ = np.ascontiguousarray(rec_end, np.int64)
+    spans = re_ - rs  # a span's length bounds its record's codes
+    if len(rs) and (spans.min() < 0 or rs.min() < 0 or re_.max() > len(buf)):
+        raise ValueError("record spans must satisfy 0 <= start <= end <= len(buf)")
+    m = len(rs)
+    codes = np.empty(int(spans.sum()), np.uint8)
+    offsets = np.empty(m + 1, np.int64)
+    bad = lib.db_fastx_extract_flat(_u8p(buf), _i64p(rs), _i64p(re_), m, _u8p(codes),
+                                    _i64p(offsets))
+    fastx_extract_flat.calls += 1
+    return codes[: offsets[m]], offsets, int(bad)
+
+
+fastx_extract_flat.calls = 0
 
 
 def fastx_extract_batch(buf: np.ndarray, rec_start: np.ndarray, rec_end: np.ndarray,
