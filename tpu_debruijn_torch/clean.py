@@ -13,6 +13,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from tpu_debruijn_torch import exts as E
+from tpu_debruijn_torch.compress import CompressionSpec
 from tpu_debruijn_torch.graph import DebruijnGraph, Node, compress_graph
 from tpu_debruijn_torch.stages import Stages
 
@@ -40,12 +41,16 @@ class CleanGraph:
 
 
 def clean_tips(graph: DebruijnGraph, tip_predicate: Callable[[Node], bool], *,
-               data_reduce="sum_sat_u16", device="cuda",
-               stats: Optional[dict] = None) -> DebruijnGraph:
-    """Find the tips, censor them and re-compress on ``device``.
-    ``stats``, a dict, receives ``clean.compress_graph_s``, the
-    re-compression (:class:`~tpu_debruijn_torch.stages.Stages`); the rest
-    of the call finds the tips."""
+               data_reduce="sum_sat_u16", spec: Optional[CompressionSpec] = None,
+               device="cuda", stats: Optional[dict] = None) -> DebruijnGraph:
+    """Find the tips, censor them and re-compress on ``device``, under the
+    merge policy ``spec`` where given (``ScmapCompress()`` re-joins only
+    nodes of equal data), else folding the data by ``data_reduce``
+    (:func:`~tpu_debruijn_torch.graph.compress_graph`).  ``stats``, a dict,
+    receives ``clean.compress_graph_s``, the re-compression
+    (:class:`~tpu_debruijn_torch.stages.Stages`); the rest of the call
+    finds the tips."""
     bad = CleanGraph(tip_predicate).find_bad_nodes(graph)
     with Stages(stats, device)("clean.compress_graph"):
-        return compress_graph(graph, censor_nodes=bad, data_reduce=data_reduce, device=device)
+        return compress_graph(graph, censor_nodes=bad, data_reduce=data_reduce, spec=spec,
+                              device=device)

@@ -861,7 +861,7 @@ def _fold_pairs_device(pu: torch.Tensor, pl: torch.Tensor):
 
 
 def compress_kmers_color_sets(table, pair_label, split, *, join_on_sets: bool = False,
-                              device="cuda"):
+                              device="cuda", stats: Optional[dict] = None):
     """Fold label sets ("colors") through compression as arrays: no Python
     object a kmer, no Python call an edge.
 
@@ -876,24 +876,36 @@ def compress_kmers_color_sets(table, pair_label, split, *, join_on_sets: bool = 
     Returns (nodes, out_labels int32, out_split int64), as numpy: ``nodes``
     is [(bases, exts, data)], data the eq-class id with ``join_on_sets``
     and 0 without; unitig u's set is ``out_labels[out_split[u]:out_split[u + 1]]``.
+    ``stats``, a dict, receives the seconds of three stages
+    (:class:`~tpu_debruijn_torch.stages.Stages`): ``compress.eq_classes_s``
+    (the eq-class ids, with ``join_on_sets``), ``compress.nodes_s`` (the
+    tuple a unitig, as :func:`compress_kmers` has it) and
+    ``compress.fold_sets_s`` (each unitig's set, to the host).
     """
     n = len(table)
     if n == 0:
         return [], np.zeros(0, np.int32), np.zeros(1, np.int64)
+    stage = Stages(stats, device)
     pair_label = F.as_tensor(pair_label, torch.int32, device)
     split = F.as_tensor(split, torch.int64, device)
-    labels = F.eq_class_ids(pair_label, split)[0] if join_on_sets else None
+    labels = None
+    if join_on_sets:
+        with stage("compress.eq_classes"):
+            labels = F.eq_class_ids(pair_label, split)[0]
     kmers = table.kmers.to(device)
     chains, u_exts, contrib = compress_kmer_table_device(
         table.spec, table.stranded, kmers, table.exts.to(device), join_labels=labels)
     seq, out_len = assemble_unitigs_device(table.spec, kmers, chains, contrib)
     node_data = (gather_rows(labels, chains.first_item).tolist() if join_on_sets
                  else [0] * chains.n_unitigs)
-    nodes = _nodes(seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy(), node_data)
-    slot_of_pair = torch.repeat_interleave(torch.arange(n, device=device), torch.diff(split))
-    uids, out_labels = _fold_pairs_device(gather_rows(chains.uid, slot_of_pair), pair_label)
-    out_split = torch.searchsorted(uids, torch.arange(chains.n_unitigs + 1, device=device))
-    return nodes, out_labels.cpu().numpy(), out_split.cpu().numpy()
+    flat = seq.cpu().numpy(), out_len.cpu().numpy(), u_exts.cpu().numpy()
+    with stage("compress.nodes"):
+        nodes = _nodes(*flat, node_data)
+    with stage("compress.fold_sets"):
+        slot_of_pair = torch.repeat_interleave(torch.arange(n, device=device), torch.diff(split))
+        uids, out_labels = _fold_pairs_device(gather_rows(chains.uid, slot_of_pair), pair_label)
+        out_split = torch.searchsorted(uids, torch.arange(chains.n_unitigs + 1, device=device))
+        return nodes, out_labels.cpu().numpy(), out_split.cpu().numpy()
 
 
 def infer_exts_device(spec: KmerSpec, stranded: bool, kmers: torch.Tensor) -> torch.Tensor:

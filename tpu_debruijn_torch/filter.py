@@ -302,7 +302,11 @@ def count_kmer_pairs(spec: KmerSpec, bases: torch.Tensor, lengths: torch.Tensor,
     srows = _sorted_rows(spec, bases, lengths, seq_exts, labels.to(torch.int32)[:, None],
                          stranded, by_label=True)
     urows = run_reduce_rows(srows, w, by_label=True)
+    count_kmer_pairs.rows += urows.shape[0]
     return row_limbs(urows, w), urows[:, w + 1].contiguous(), urows[:, w] & 0xFF, urows[:, w] >> 8
+
+
+count_kmer_pairs.rows = 0  # the (kmer, label) rows made, over every call
 
 
 def _pair_keys(spec: KmerSpec, bases, lengths, seq_exts, labels, *, stranded: bool):
@@ -395,7 +399,7 @@ def _read_batch(spec: KmerSpec, items, device, labels=None):
 
 
 def filter_kmers_set_arrays(seqs, k: int, *, stranded: bool = False, min_obs: int = 1,
-                            device="cuda"):
+                            device="cuda", stats: Optional[dict] = None):
     """Array-native CountFilterSet (filter.rs:68-101): each kmer's data is
     the set of labels ("colors") it was observed with.
 
@@ -404,15 +408,26 @@ def filter_kmers_set_arrays(seqs, k: int, *, stranded: bool = False, min_obs: in
     ``pair_label[split[i]:split[i + 1]]``; ``min_obs`` applies to each
     kmer's total count.  One :func:`count_kmer_pairs` batch rolled up per
     kmer, as the colored device merge of :func:`filter_kmers_streaming`
-    does."""
+    does.  ``stats``, a dict, receives the seconds of four stages
+    (:class:`~tpu_debruijn_torch.stages.Stages`): ``filter.pad_s`` and
+    ``filter.upload_s`` as :func:`filter_kmers` has them,
+    ``filter.pairs_s`` (:func:`count_kmer_pairs`) and
+    ``filter.pair_table_s`` (the roll-up per kmer and ``min_obs``)."""
     spec = KmerSpec(k)
     device = torch.device(device)
-    items = [s for s in seqs if len(s[0]) >= k]
-    if not items:
+    stage = Stages(stats, device)
+    with stage("filter.pad"):
+        items = [s for s in seqs if len(s[0]) >= k]
+        host = _read_batch(spec, items, "cpu") if items else None  # host tensors, no copy
+    if host is None:
         return (_empty_table(spec, stranded, device), torch.zeros(0, dtype=torch.int32, device=device),
                 torch.zeros(1, dtype=torch.int64, device=device))
-    keys, exts, counts = _pair_keys(spec, *_read_batch(spec, items, device), stranded=stranded)
-    return _pair_table(spec, stranded, min_obs, keys, exts, counts)
+    with stage("filter.upload"):
+        batch = tuple(t.to(device) for t in host)
+    with stage("filter.pairs"):
+        keys, exts, counts = _pair_keys(spec, *batch, stranded=stranded)
+    with stage("filter.pair_table"):
+        return _pair_table(spec, stranded, min_obs, keys, exts, counts)
 
 
 def filter_kmers_set(seqs, k: int, *, stranded: bool = False, min_obs: int = 1, device="cuda"):
@@ -486,7 +501,15 @@ def eq_class_ids(pair_label: torch.Tensor, split: torch.Tensor, *,
     remap[order] = torch.arange(order.shape[0], device=dev)
     ids = torch.empty(n, dtype=torch.int32, device=dev)
     ids[perm] = remap[torch.cumsum(starts, 0) - 1].to(torch.int32)
+    if dense:
+        eq_class_ids.dense_calls += 1
+    else:
+        eq_class_ids.hashed_calls += 1
     return ids, first[order], dense
+
+
+eq_class_ids.dense_calls = 0  # calls that grouped the signature rows themselves
+eq_class_ids.hashed_calls = 0  # calls that grouped the runs' digests
 
 
 def _signed64(x: int) -> int:
