@@ -46,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu_debruijn_torch import host_pad as HP
 from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import sorting as S
 from tpu_debruijn_torch.kernels.canonical import canonicalize as _canonicalize
@@ -325,19 +326,58 @@ def _empty_table(spec: KmerSpec, stranded: bool, device, report_all: bool = Fals
 
 
 def pad_reads(
-    seqs: Sequence[np.ndarray], min_len: int, pad_to: Optional[int] = None
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Stack variable-length base arrays into a padded (R, L) matrix."""
+    seqs: Sequence[np.ndarray], min_len: int, pad_to: Optional[int] = None, *,
+    items: bool = False, labels=None,
+):
+    """Stack variable-length base arrays into a padded (R, L) matrix.
+
+    Returns (bases (R, L) uint8, lengths (R,) int32): L is the longest row,
+    or ``min_len`` if more, rounded up to ``pad_to``, and every byte past a
+    row's length is 0.  With ``items``, ``seqs`` are (bases, seq_exts, label)
+    items and the call returns their seq_exts and labels besides, (R,) int32
+    each: the items' labels unless ``labels`` is given.
+
+    A list or tuple is padded by one native walk (:mod:`~tpu_debruijn_torch.host_pad`)
+    from its first row up to the first it cannot take (bases that are no
+    C-contiguous uint8 array, an exts or label that is no Python int); the
+    Python loop pads the rows from there, and any other sequence, with the
+    same bytes.  ``pad_reads.native_rows`` and ``pad_reads.python_rows``
+    count the rows each padded, over every call.
+    """
     if not seqs:
         raise ValueError("no sequences")
-    lengths = np.array([len(s) for s in seqs], dtype=np.int32)
+    r = len(seqs)
+    lengths = np.empty(r, np.int32)
+    exts = np.empty(r, np.int32) if items else None
+    own = np.empty(r, np.int32) if items and labels is None else None
+    lib = HP.library() if isinstance(seqs, (list, tuple)) else None
+    m = 0 if lib is None else HP.measure(lib, seqs, items, lengths, exts, own)
+    if m < r:  # the lengths, exts and labels the walk could not read
+        rest = seqs[m:] if m else seqs
+        lengths[m:] = [len(s[0] if items else s) for s in rest]
+        if items:
+            exts[m:] = np.array([s[1] for s in rest], dtype=np.int32)
+        if own is not None:
+            own[m:] = np.array([s[2] for s in rest], dtype=np.int32)
     l = max(int(lengths.max()), min_len)
     if pad_to:
         l = -(-l // pad_to) * pad_to
-    out = np.zeros((len(seqs), l), dtype=np.uint8)
-    for i, s in enumerate(seqs):
+    out = np.empty((r, l), dtype=np.uint8)
+    done = 0 if lib is None else HP.copy(lib, seqs, items, lengths, out)
+    out[done:] = 0
+    for i in range(done, r):
+        s = seqs[i][0] if items else seqs[i]
         out[i, : len(s)] = np.asarray(s, dtype=np.uint8)
-    return out, lengths
+    _PAD_COUNTS.native_rows += done
+    _PAD_COUNTS.python_rows += r - done
+    if not items:
+        return out, lengths
+    return out, lengths, exts, own if labels is None else np.asarray(labels, np.int32)
+
+
+pad_reads.native_rows = 0  # rows the native walk padded, over every call
+pad_reads.python_rows = 0  # rows the Python loop padded, over every call
+_PAD_COUNTS = pad_reads  # where the counts go, should a caller rebind the module's name
 
 
 def filter_kmers(
@@ -386,11 +426,8 @@ def _read_batch(spec: KmerSpec, items, device, labels=None):
     """(bases, seq_exts, label) items, none shorter than K, as one padded
     batch on ``device``: (bases, lengths, seq_exts, labels) tensors; the
     items' labels unless ``labels`` is given."""
-    bases, lengths = pad_reads([s[0] for s in items], min_len=spec.k, pad_to=16)
-    seq_exts = np.array([s[1] for s in items], dtype=np.int32)
-    if labels is None:
-        labels = np.array([s[2] for s in items], dtype=np.int32)
-    return tuple(torch.from_numpy(a).to(device) for a in (bases, lengths, seq_exts, labels))
+    batch = pad_reads(items, min_len=spec.k, pad_to=16, items=True, labels=labels)
+    return tuple(torch.from_numpy(a).to(device) for a in batch)
 
 
 # ---------------------------------------------------------------------------

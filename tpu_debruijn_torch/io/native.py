@@ -30,12 +30,14 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 
-def _build_library() -> Optional[str]:
-    """The codec library's path, built (once per source and flags hash) if
-    it is not there; None when no host C++ compiler is found."""
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + f.read())
-    out = os.path.join(BUILD_DIR, f"libtdb_host_codec_{h.hexdigest()[:16]}.so")
+def build_host_library(source: str, stem: str, flags) -> Optional[str]:
+    """The path of ``source`` built by the host C++ compiler with ``flags``
+    into ``_build/lib{stem}_<hash>.so`` (once per source and flags hash) if
+    it is not there; None when no host C++ compiler is found.  A compiler
+    error raises."""
+    with open(source, "rb") as f:
+        h = hashlib.sha256(" ".join(flags).encode() + b"\0" + f.read())
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     cxx = shutil.which("c++") or shutil.which("g++")
@@ -43,11 +45,17 @@ def _build_library() -> Optional[str]:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    res = subprocess.run([cxx, *flags, "-o", tmp, source], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"building the host codec failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"building {os.path.basename(source)} failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def _build_library() -> Optional[str]:
+    """The codec library's path (:func:`build_host_library`)."""
+    return build_host_library(SOURCE, "tdb_host_codec", CXX_FLAGS)
 
 
 def _load():
