@@ -171,6 +171,72 @@ def test_search_kmer_and_find_link(contig_graphs, k, stranded):
     assert empty.search_kmer(probes[0], 0) is None and empty.find_link(probes[0], 1) is None
 
 
+@pytest.mark.parametrize("k", [15, 31, 33, 63])
+def test_end_kmer_index_and_search(k):
+    """The graph's index, read from the packed store and sorted on the
+    device, against the JAX package's host index: the same end kmers, node
+    ids in the order of a stable lexsort (ties in node order), and the same
+    search_kmer / find_link answers.  End kmers repeat across nodes, some
+    nodes are one kmer long, and lengths cross every word offset."""
+    rng = np.random.default_rng(k)
+    spec = RK.KmerSpec(k)
+    ends = rng.integers(0, 4, (6, k)).astype(np.uint8)
+    seqs = []
+    for i in range(90):
+        head, tail = ends[rng.integers(0, len(ends), 2)]
+        mid = rng.integers(0, 4, int(rng.integers(0, 40))).astype(np.uint8)
+        seqs.append(head if i % 7 == 0 else np.concatenate([head, mid, tail]))
+    base = G.BaseGraph(k, False)
+    base.add_flat(np.concatenate(seqs), [len(s) for s in seqs], np.full(len(seqs), 0xFF),
+                  np.arange(len(seqs)))
+    g, t = _pair(base.finish())
+    assert np.array_equal(t.first_kmers, g.first_kmers)
+    assert np.array_equal(t.last_kmers, g.last_kmers)
+    lk_sorted, lk_ids, rk_sorted, rk_ids = t._index
+    for kmers, ids, srt in ((g.first_kmers, lk_ids, lk_sorted), (g.last_kmers, rk_ids, rk_sorted)):
+        want = np.lexsort(tuple(kmers[:, i] for i in range(kmers.shape[1] - 1, -1, -1)))
+        assert len(np.unique(kmers, axis=0)) < len(kmers)
+        assert np.array_equal(ids.numpy(), want)
+        assert np.array_equal(TK.to_numpy(srt), kmers[want])
+    probes = list(g.first_kmers) + list(g.last_kmers)
+    probes += [np.asarray(RK.rc(spec, km[None]))[0] for km in probes[::5]]
+    probes += list(RK.from_bases_batch_np(spec, rng.integers(0, 4, (20, k))))
+    for km in probes:
+        for side in (0, 1):
+            assert t.search_kmer(km, side) == g.search_kmer(km, side)
+            assert t.find_link(km, side) == g.find_link(km, side)
+
+
+@pytest.mark.parametrize("payloads", ["int", "mixed"])
+def test_from_compress_output_matches_add_loop(payloads):
+    """from_compress_output's one add_flat gives what a BaseGraph.add a
+    node gives: sequences, exts, data, and the rich sidecar (None for an
+    int node, only once any node is rich)."""
+    rng = np.random.default_rng(5)
+    nodes = []
+    for i in range(60):
+        seq = rng.integers(0, 4, int(rng.integers(16, 70))).astype(np.uint8)
+        data = [int(rng.integers(0, 1000)), np.int32(i), np.int64(7 * i)][i % 3]
+        if payloads == "mixed" and i % 4 in (1, 2):
+            data = (i, i + 3) if i % 4 == 1 else {"strain": i}
+        nodes.append((seq, int(rng.integers(0, 256)), data))
+    got = TG.from_compress_output(16, False, nodes)
+    want = TG.BaseGraph(16, False)
+    for seq, exts, data in nodes:
+        if isinstance(data, (int, np.integer)):
+            want.add(seq, exts, int(data))
+        else:
+            want.add(seq, exts, 0, rich=data)
+    assert len(got) == len(want) == len(nodes)
+    assert np.array_equal(got.sequences._flat(), want.sequences._flat())
+    assert np.array_equal(got.sequences.length, want.sequences.length)
+    assert got.exts.dtype == got.data.dtype == np.int32
+    assert np.array_equal(got.exts, want.exts) and np.array_equal(got.data, want.data)
+    assert got.rich == want.rich and (got.rich is None) == (payloads == "int")
+    empty = TG.from_compress_output(16, False, [])
+    assert len(empty) == 0 and empty.rich is None and len(empty.finish(device="cpu")) == 0
+
+
 def _kmer_graph(tab, k, stranded, pal=False):
     """A graph of one node a table kmer (tests/test_graph.py:51's form),
     exts and counts from the table."""

@@ -162,6 +162,13 @@ class Chains:
     last_flip: torch.Tensor
 
 
+def _empty_chains(device) -> Chains:
+    """The chains of no item."""
+    z = torch.zeros(0, dtype=torch.int64, device=device)
+    return Chains(uid=z, pos=z, flip=z.bool(), n_unitigs=0, length=z, first_item=z, last_item=z,
+                  first_flip=z, last_flip=z)
+
+
 def _succ_states(partner_l, partner_r, in_l, in_r):
     """Directed successor over 2n (item, orientation) walker states.
 
@@ -584,6 +591,15 @@ def _reduce_np(op: str, vals: np.ndarray, uid: np.ndarray, n_unitigs: int) -> np
     raise ValueError(op)
 
 
+def _fold_host(data_reduce, vals, uid, pos, n_unitigs) -> np.ndarray:
+    """Each unitig's int ``vals`` folded by ``data_reduce`` on the host: a
+    closure in unitig path order (:func:`_fold_closure`), a name by
+    :func:`_reduce_np`.  ``uid``/``pos``: each value's unitig and position."""
+    if callable(data_reduce):
+        return _fold_closure(data_reduce, vals, uid, pos, n_unitigs)
+    return _reduce_np(data_reduce, vals, uid, n_unitigs)
+
+
 def _fold_closure(fn, vals, uid, pos, n_unitigs) -> np.ndarray:
     """Fold a reduce closure over int data in unitig path order, left to
     right (build_node's fold, compression.rs:510,531); 0 for a unitig with
@@ -621,14 +637,10 @@ def assemble_unitigs_flat(spec: KmerSpec, kmers: np.ndarray, uid, pos, flip, len
 
     Returns ``(seq_flat uint8, out_lengths int64, u_exts int32, data
     int32)``, the ``BaseGraph.add_flat`` input: ``data_np`` folded per
-    unitig by ``data_reduce``, a name of :func:`_reduce_np` or a closure
-    (:func:`_fold_closure`).
+    unitig by ``data_reduce`` (:func:`_fold_host`).
     """
     live = uid >= 0
-    if callable(data_reduce):
-        data_red = _fold_closure(data_reduce, data_np[live], uid[live], pos[live], nutg)
-    else:
-        data_red = _reduce_np(data_reduce, data_np[live], uid[live], nutg)
+    data_red = _fold_host(data_reduce, data_np[live], uid[live], pos[live], nutg)
     out_lengths = (lengths[:nutg] + spec.k - 1).astype(np.int64)
     offsets = np.zeros(nutg + 1, np.int64)
     np.cumsum(out_lengths, out=offsets[1:])
@@ -792,17 +804,14 @@ def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = Fal
 def _fold_data(data_reduce, data: torch.Tensor, chains: Chains) -> np.ndarray:
     """Each unitig's ``data`` folded by ``data_reduce`` as int32 numpy:
     "sum_sat_u16" on the chains' device (only the sums cross to the host),
-    any other named op (:func:`_reduce_np`) or closure
-    (:func:`_fold_closure`) on the host from each item's unitig and
-    position."""
+    any other reduce on the host from each item's unitig and position
+    (:func:`_fold_host`)."""
     if data_reduce == "sum_sat_u16":
         sums = torch.zeros(chains.n_unitigs, dtype=torch.int64, device=data.device)
         sums.index_add_(0, chains.uid, data.to(torch.int64))
         return sums.clamp(max=F.COUNT_MAX).to(torch.int32).cpu().numpy()
-    uid, vals = chains.uid.cpu().numpy(), data.cpu().numpy()
-    if callable(data_reduce):
-        return _fold_closure(data_reduce, vals, uid, chains.pos.cpu().numpy(), chains.n_unitigs)
-    return _reduce_np(data_reduce, vals, uid, chains.n_unitigs)
+    return _fold_host(data_reduce, data.cpu().numpy(), chains.uid.cpu().numpy(),
+                      chains.pos.cpu().numpy(), chains.n_unitigs)
 
 
 def compress_kmers_rich(table, payloads, spec=None, *, reduce=None, join_test=None,

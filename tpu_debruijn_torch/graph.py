@@ -3,20 +3,22 @@ checkpoints and re-compression.
 
 Counterpart of ``tpu_debruijn/graph.py`` (rust-debruijn's graph.rs).
 ``BaseGraph`` is the unitig store, with an optional sidecar of per-node
-payload objects (``rich``); ``DebruijnGraph`` adds the sorted end-kmer
-indexes, resolves every candidate link of the graph (graph.rs:223-291) in
-one batched search on the device and keeps the result on the host: edges
-(``Node``, ``find_edges``), extension repair (``fix_exts``), the
-``is_compressed`` check, walks (``max_path``, ``max_path_beam``,
-``sequence_of_path``), exports (GFA, dot, JSON) and ``save``/``load`` all
-read those numpy arrays, with no device read a step.
-:func:`compress_graph` merges unbranched nodes (compression.rs:291-349)
-with the kmer-level machinery: node partners by searches on the device,
-then ``compress.link_chains`` (``rank_lists``).
+payload objects (``rich``); ``DebruijnGraph`` adds the find_link index
+(its end kmers and their stable sort, built once on its ``device``),
+resolves every candidate link of the graph (graph.rs:223-291) in one
+batched search over it and keeps the result on the host: edges (``Node``,
+``find_edges``), extension repair (``fix_exts``), the ``is_compressed``
+check, walks (``max_path``, ``max_path_beam``, ``sequence_of_path``),
+exports (GFA, dot, JSON) and ``save``/``load`` all read those numpy arrays,
+with no device read a step.  :func:`compress_graph` merges unbranched nodes
+(compression.rs:291-349) by the node merge the sharded stitch runs too:
+node partners by searches of the index, then ``compress.link_chains``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import io as _io
 import json
 import pickle
@@ -144,23 +146,27 @@ class BaseGraph:
 
 
 def from_compress_output(k: int, stranded: bool, nodes) -> BaseGraph:
-    """Wrap compress.compress_kmers output [(bases, exts, data)]; data that
-    is not an int (compress_kmers_rich's payloads) goes to the ``rich``
-    sidecar, with data 0."""
-    g = BaseGraph(k, stranded)
-    for seq, exts, data in nodes:
-        if isinstance(data, (int, np.integer)):
-            g.add(seq, exts, int(data))
-        else:
-            g.add(seq, exts, 0, rich=data)
-    return g
+    """Wrap compress.compress_kmers output [(bases, exts, data)] in one
+    ``add_flat``; data that is not an int (compress_kmers_rich's payloads)
+    goes to the ``rich`` sidecar, with data 0."""
+    seqs, exts, data = tuple(zip(*nodes)) or ((), (), ())
+    ints = [isinstance(d, (int, np.integer)) for d in data]
+    rich = None if all(ints) else [None if i else d for i, d in zip(ints, data)]
+    data = data if rich is None else [d if i else 0 for i, d in zip(ints, data)]
+    return _flat_graph(k, stranded, np.concatenate([np.zeros(0, np.uint8), *seqs]),
+                       np.fromiter(map(len, seqs), np.int64),
+                       np.fromiter(exts, np.int32), np.fromiter(data, np.int32), rich)
 
 
 def from_flat_output(k: int, stranded: bool, seq_flat, lengths, exts, data=None) -> BaseGraph:
     """Wrap flat unitig buffers (compress.assemble_unitigs_flat,
     compress.compress_kmers_flat_device): the bulk path."""
+    return _flat_graph(k, stranded, seq_flat, lengths, exts, data)
+
+
+def _flat_graph(k: int, stranded: bool, seq_flat, lengths, exts, data=None, rich=None) -> BaseGraph:
     g = BaseGraph(k, stranded)
-    g.add_flat(seq_flat, lengths, exts, data)
+    g.add_flat(seq_flat, lengths, exts, data, rich=rich)
     return g
 
 
@@ -213,6 +219,25 @@ def sorted_ends(kmers: torch.Tensor):
     return gather_rows(kmers, ids), ids
 
 
+def _end_kmers(spec: KmerSpec, seqs: PackedSeqSet, device):
+    """Every node's first and last kmer, (n, W) int64 limbs each, read on
+    ``device`` from the store's 2-bit words (first base highest): limb j of
+    a kmer at base s is the 16 bases ending at s + K - 16 (W - 1 - j), from
+    two words; zero words pad the stream at both ends."""
+    k, w = spec.k, spec.w
+    lens, starts = seqs.length, seqs.start
+    words = np.concatenate([np.zeros(1, np.uint32), seqs.packed_words(), np.zeros(1, np.uint32)])
+    words = torch.from_numpy(words.view(np.int32)).to(device).to(torch.int64) & KM.M32
+    at = torch.from_numpy(np.concatenate([starts, starts + lens - k])).to(device)
+    pos = at[:, None] + (k + 16 - 16 * (w - torch.arange(w, device=words.device)))
+    q, r2 = (pos >> 4).reshape(-1), 2 * (pos & 15)
+    hi = gather_rows(words, q).reshape(pos.shape) << r2
+    lo = gather_rows(words, q + 1).reshape(pos.shape) >> (32 - r2)
+    limbs = (hi & KM.M32) | lo
+    limbs[:, 0] &= int(spec.top_mask)
+    return limbs[: len(lens)], limbs[len(lens) :]
+
+
 def _exts_of(mask: torch.Tensor) -> torch.Tensor:
     """(n, 2, 4) bool (node, dir, base) -> (n,) int32 Exts bytes."""
     bits = torch.arange(8, dtype=torch.int32, device=mask.device)
@@ -225,62 +250,42 @@ def _ext_bits(exts: torch.Tensor) -> torch.Tensor:
     return ((exts[:, None, None] >> bits) & 1).bool()
 
 
-def _fix_exts_device(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids, first_k, last_k,
-                     exts, valid=None):
-    """Device fix_exts (graph.rs:337-377): keep only the extensions whose
-    target kmer is an end kmer of a node, of a ``valid`` one when given;
-    invalid nodes get 0.  The node tables are unpadded, so JAX's
-    ``n_valid`` bound is gone."""
-    if first_k.shape[0] == 0:
-        return exts
-    t, _, _, found = _link_and_edges(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids,
-                                     first_k, last_k)
+def _fix_exts(links, exts: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fix_exts (graph.rs:337-377) over :func:`_link_and_edges`' table:
+    keep the extensions whose target kmer is an end kmer of a node, of a
+    ``valid`` one when given (a node's own validity is not read)."""
+    t, _, _, found = links
     keep = _ext_bits(exts) & found
-    if valid is None:
-        return _exts_of(keep)
-    return torch.where(valid, _exts_of(keep & valid[t]), 0)
+    if valid is not None:
+        keep &= valid[t]
+    return _exts_of(keep)
 
 
 class DebruijnGraph:
-    """Walkable compressed graph: BaseGraph + sorted end-kmer indexes."""
+    """Walkable compressed graph: BaseGraph + the find_link index on
+    ``device``: end kmers (``_ends``) and :func:`sorted_ends` of each."""
 
     def __init__(self, base: BaseGraph, device="cuda"):
         self.base = base
         self.spec = base.spec
         self.stranded = base.stranded
         self.device = torch.device(device)
-        n = len(base)
-        k, w = self.spec.k, self.spec.w
-        if n:
-            flat = base.sequences._flat()
-            starts = np.asarray(base.sequences.start, np.int64)
-            lens = np.asarray(base.sequences.length, np.int64)
-            ar = np.arange(k)[None, :]
-            self.first_kmers = KM.from_bases_batch_np(self.spec, flat[starts[:, None] + ar])
-            self.last_kmers = KM.from_bases_batch_np(self.spec, flat[(starts + lens - k)[:, None] + ar])
-        else:
-            self.first_kmers = np.zeros((0, w), np.uint32)
-            self.last_kmers = np.zeros((0, w), np.uint32)
         self.exts = np.asarray(base.exts, np.int32)
         self.data = np.asarray(base.data, np.int32)
         self.rich = base.rich
-        order_l = self._sort_ids(self.first_kmers)
-        order_r = self._sort_ids(self.last_kmers)
-        self._lk_sorted = self.first_kmers[order_l]
-        self._lk_ids = order_l
-        self._rk_sorted = self.last_kmers[order_r]
-        self._rk_ids = order_r
+        first_k, last_k = self._ends = _end_kmers(self.spec, base.sequences, self.device)
+        self._index = sorted_ends(first_k) + sorted_ends(last_k)
         self._links = None  # where each extension lands: independent of exts
         self._edges = None
         self._lists = None  # the edges as flat host lists, by (node, dir)
-        self._lk_bytes = None  # byte keys of the sorted end kmers, for search_kmer
-        self._rk_bytes = None
 
-    @staticmethod
-    def _sort_ids(kmers: np.ndarray) -> np.ndarray:
-        if len(kmers) == 0:
-            return np.zeros(0, np.int64)
-        return np.lexsort(tuple(kmers[:, i] for i in range(kmers.shape[1] - 1, -1, -1)))
+    # host copies, made on first read: the end kmers as (n, W) uint32 limbs,
+    # and search_kmer's (byte keys, node ids) of each side's sorted index
+    first_kmers = functools.cached_property(lambda self: KM.to_numpy(self._ends[0]))
+    last_kmers = functools.cached_property(lambda self: KM.to_numpy(self._ends[1]))
+    _search_keys = functools.cached_property(lambda self: [
+        (self._byte_keys(KM.to_numpy(self._index[i])), self._index[i + 1].cpu().numpy())
+        for i in (0, 2)])
 
     def __len__(self):
         return len(self.base)
@@ -301,24 +306,28 @@ class DebruijnGraph:
         extension lands is searched on the device once; the extension bits
         are applied again whenever ``exts`` changes."""
         if self._edges is None:
-            if self._links is None:
-                if len(self) == 0:
-                    z = np.zeros((0, 2, 4), np.int64)
-                    self._links = (z, z, z.astype(bool), z.astype(bool))
-                else:
-                    dev = self.device
-                    ids = lambda a: torch.from_numpy(a).to(dev)
-                    links = _link_and_edges(
-                        self.spec, self.stranded,
-                        KM.to_torch(self._lk_sorted, dev), ids(self._lk_ids),
-                        KM.to_torch(self._rk_sorted, dev), ids(self._rk_ids),
-                        KM.to_torch(self.first_kmers, dev), KM.to_torch(self.last_kmers, dev),
-                    )
-                    self._links = tuple(x.cpu().numpy() for x in links)
-            t, s, f, found = self._links
-            has = ((self.exts[:, None, None] >> np.arange(8).reshape(2, 4)) & 1).astype(bool)
-            self._edges = (t, s, f, found & has)
+            t, s, f, found = self._link_table()
+            self._edges = (t, s, f, found & _ext_bits(torch.from_numpy(self.exts)).numpy())
         return self._edges
+
+    def _link_table(self):
+        """Where each (node, dir, base) extension lands, whatever the exts:
+        (target, in_side, flip, found), searched once over the index."""
+        if self._links is None:
+            if len(self) == 0:
+                z = np.zeros((0, 2, 4), np.int64)
+                self._links = (z, z, z.astype(bool), z.astype(bool))
+            else:
+                links = _link_and_edges(self.spec, self.stranded, *self._index, *self._ends)
+                self._links = tuple(x.cpu().numpy() for x in links)
+        return self._links
+
+    def _set_exts(self, exts: np.ndarray) -> None:
+        """New exts here and in the base graph; the edges follow them."""
+        self.exts = exts
+        self.base.exts = exts
+        self._edges = None
+        self._lists = None
 
     def _edge_lists(self):
         """The edge table as host lists for walks and exports: the edges
@@ -350,22 +359,14 @@ class DebruijnGraph:
     def search_kmer(self, kmer_limbs, side: int) -> Optional[int]:
         """graph.rs:244-249: the node whose ``side`` end kmer is
         ``kmer_limbs`` ((W,) limbs), or None; a host binary search."""
-        arr, ids = (self._lk_sorted, self._lk_ids) if side == LEFT else (self._rk_sorted, self._rk_ids)
-        if len(arr) == 0:
+        if len(self) == 0:
             return None
-        if side == LEFT:
-            if self._lk_bytes is None:
-                self._lk_bytes = self._byte_keys(arr)
-            keys = self._lk_bytes
-        else:
-            if self._rk_bytes is None:
-                self._rk_bytes = self._byte_keys(arr)
-            keys = self._rk_bytes
+        keys, ids = self._search_keys[0 if side == LEFT else 1]
         # numpy's S dtype strips trailing NULs but compares NUL-padded, so
         # both sides through the same conversion keep limb order
         q = np.asarray(np.asarray(kmer_limbs, np.uint32).astype(">u4").tobytes(), dtype=keys.dtype)
         lo = int(np.searchsorted(keys, q))
-        if lo < len(arr) and keys[lo] == q:
+        if lo < len(keys) and keys[lo] == q:
             return int(ids[lo])
         return None
 
@@ -389,25 +390,18 @@ class DebruijnGraph:
     def get_valid_exts(self, node_id: int, valid: Optional[np.ndarray]) -> int:
         """The node's Exts byte keeping only edges onto ``valid`` nodes
         (graph.rs:344-377)."""
-        t, _, _, ex = self._edge_table()
-        new = 0
-        for d in (LEFT, RIGHT):
-            for b in range(4):
-                if ex[node_id, d, b] and (valid is None or valid[int(t[node_id, d, b])]):
-                    new = E.set_ext(new, d, b)
-        return new
+        return int(self._fixed_exts(valid, slice(node_id, node_id + 1))[0])
+
+    def _fixed_exts(self, valid, rows=slice(None)) -> np.ndarray:
+        """fix_exts of the nodes ``rows``, over the host link table."""
+        links = tuple(torch.from_numpy(x[rows]) for x in self._link_table())
+        valid = None if valid is None else torch.from_numpy(np.asarray(valid, bool))
+        return _fix_exts(links, torch.from_numpy(self.exts[rows]), valid).numpy()
 
     def fix_exts(self, valid: Optional[np.ndarray] = None) -> None:
         """Drop the extensions with no target, or no ``valid`` target
         (graph.rs:337-342); sets ``exts`` here and in the base graph."""
-        t, _, _, ex = self._edge_table()
-        keep = ex if valid is None else ex & np.asarray(valid, bool)[t]
-        new = (keep.reshape(-1, 8).astype(np.int32) << np.arange(8, dtype=np.int32)).sum(
-            1, dtype=np.int32)
-        self.exts = new
-        self.base.exts = new
-        self._edges = None
-        self._lists = None
+        self._set_exts(self._fixed_exts(valid))
 
     # -- checks ----------------------------------------------------------
     def is_compressed(self, join_test: Optional[Callable[[int, int], bool]] = None):
@@ -430,7 +424,7 @@ class DebruijnGraph:
         node_len = np.asarray(self.base.sequences.length, np.int64)
         pal = np.zeros(n, bool)
         if k % 2 == 0 and (node_len == k).any():
-            pal_all = KM.is_palindrome(self.spec, KM.to_torch(self.first_kmers, self.device))
+            pal_all = KM.is_palindrome(self.spec, self._ends[0])
             pal = (node_len == k) & pal_all.cpu().numpy()
         cand = ((deg == 1) & (next_deg == 1) & ~pal[:, None] & ~pal[tgt_c]
                 & (tgt != np.arange(n)[:, None]))
@@ -778,11 +772,11 @@ class Node:
 # ---------------------------------------------------------------------------
 
 
-def _node_partner_body(spec, stranded, use_join, lk_sorted, lk_ids, rk_sorted, rk_ids,
-                       first_k, last_k, exts, node_len, valid, labels):
+def _node_partners(spec, stranded, lk_sorted, lk_ids, rk_sorted, rk_ids, first_k, last_k, exts,
+                   node_len, valid, labels=None):
     """try_extend_node (compression.rs:115-205) as vector masks over the
     nodes, then chain linking: (chains, unitig exts).  ``valid`` masks
-    censored nodes; with ``use_join`` only nodes of equal ``labels`` join."""
+    censored nodes; with ``labels`` only nodes of equal labels join."""
     n = first_k.shape[0]
     dev = first_k.device
     idx_self = torch.arange(n, device=dev)
@@ -799,7 +793,7 @@ def _node_partner_body(spec, stranded, use_join, lk_sorted, lk_ids, rk_sorted, r
         jc = j.clamp(0, n - 1)
         ok = (valid & uniq & found & valid[jc] & (j != idx_self) & ~pal_self & ~pal_next
               & (E.num_ext_dir(gather_rows(exts, jc), side) == 1))
-        if use_join:
+        if labels is not None:
             ok &= labels == gather_rows(labels, jc)
         partners[d] = torch.where(ok, j, -1)
         ins[d] = side.to(torch.int64)
@@ -807,6 +801,50 @@ def _node_partner_body(spec, stranded, use_join, lk_sorted, lk_ids, rk_sorted, r
     chains = C.link_chains(edges["partner_l"], edges["partner_r"], edges["in_l"], edges["in_r"],
                            valid)
     return chains, C.unitig_end_exts(exts, chains)
+
+
+def _merge_nodes(spec, stranded, first_k, last_k, index, exts, node_len, valid, labels=None):
+    """The node merge on the device (compression.rs:291-349) over nodes'
+    end kmers and their ``index`` (:func:`sorted_ends` of each): fix_exts
+    against the ``valid`` nodes, node partners (with ``labels``, only equal
+    labels join) and ``link_chains``, then the merged nodes' end kmers from
+    their chains and their fix_exts (compression.rs:332).  Returns (the
+    nodes' fixed exts, chains, the merged nodes' exts)."""
+    if first_k.shape[0] == 0:
+        return exts, C._empty_chains(first_k.device), exts
+    fixed = _fix_exts(_link_and_edges(spec, stranded, *index, first_k, last_k), exts, valid)
+    chains, u_exts = _node_partners(spec, stranded, *index, first_k, last_k, fixed, node_len,
+                                    valid, labels)
+    fi, li = chains.first_item, chains.last_item
+    out_fk = torch.where(chains.first_flip.bool()[:, None], KM.rc(spec, gather_rows(last_k, fi)),
+                         gather_rows(first_k, fi))
+    out_lk = torch.where(chains.last_flip.bool()[:, None], KM.rc(spec, gather_rows(first_k, li)),
+                         gather_rows(last_k, li))
+    out_index = sorted_ends(out_fk) + sorted_ends(out_lk)
+    return fixed, chains, _fix_exts(_link_and_edges(spec, stranded, *out_index, out_fk, out_lk),
+                                    u_exts)
+
+
+def _merged_graph(spec: KmerSpec, stranded: bool, seqs: PackedSeqSet, data, rich, chains,
+                  exts, *, data_reduce, rich_reduce, device, stage=None) -> "DebruijnGraph":
+    """The merge's host half: ``seqs`` stitched by the chains (K - 1
+    overlaps dropped), ``data`` and ``rich`` folded, then the merged graph
+    with ``exts`` on ``device``.  ``stage(name)``, where given, wraps the
+    stitch (``"stitch"``) and the build (``"finish"``)."""
+    stage = stage or (lambda name: contextlib.nullcontext())
+    with stage("stitch"):
+        uid, pos, flip = (x.cpu().numpy() for x in (chains.uid, chains.pos, chains.flip))
+        nutg = chains.n_unitigs
+        lids = np.nonzero(uid >= 0)[0]
+        uid, pos, flip = uid[lids], pos[lids], flip[lids]
+        seq_flat, lengths = C.stitch_flat(spec.k, seqs._flat(), seqs.start, seqs.length, lids, uid,
+                                          pos, flip, nutg)
+        data = C._fold_host(data_reduce, np.asarray(data)[lids], uid, pos, nutg)
+        if rich is not None:
+            rich = C._fold_objects(rich_reduce, rich, lids, uid, pos, nutg)
+    with stage("finish"):
+        out = _flat_graph(spec.k, stranded, seq_flat, lengths, exts.cpu().numpy(), data, rich)
+        return out.finish(device=device)
 
 
 def _union_or_first(a, b):
@@ -823,8 +861,9 @@ def compress_graph(graph: DebruijnGraph, censor_nodes: Optional[Sequence[int]] =
                    rich_reduce: Optional[Callable] = None, device="cuda") -> DebruijnGraph:
     """Merge adjacent unbranched nodes, after censoring ``censor_nodes``
     (compress_graph, compression.rs:291-349): fix_exts against the valid
-    nodes, link the nodes into chains on ``device``, stitch their sequences
-    (dropping K - 1 overlaps), rebuild, and fix_exts again.
+    nodes, link the nodes into chains on ``device`` and fix_exts the merged
+    nodes (:func:`_merge_nodes`), stitch their sequences (dropping K - 1
+    overlaps) and rebuild (:func:`_merged_graph`).
 
     The policy comes from ``spec`` (a :class:`~tpu_debruijn_torch.compress.CompressionSpec`)
     or the ``data_reduce``/``join_on_data`` knobs.  A ``rich`` sidecar folds
@@ -832,48 +871,21 @@ def compress_graph(graph: DebruijnGraph, censor_nodes: Optional[Sequence[int]] =
     by default int sequences merge as sorted set unions and any other
     payload keeps the first.  Sets ``graph``'s exts, as JAX does.
     """
-    n = len(graph)
-    valid = np.ones(n, bool)
+    valid = np.ones(len(graph), bool)
     if censor_nodes is not None:
         valid[np.asarray(list(censor_nodes), int)] = False
-    graph.fix_exts(valid)
-    k = graph.spec.k
-    if n == 0:
-        return BaseGraph(k, graph.stranded).finish(device=device)
-    labels = graph.data
+    labels = graph.data if join_on_data else None
     if spec is not None:
         data_reduce = spec.reduce
-        la = spec.label_array(graph.data)
-        join_on_data = la is not None
-        if join_on_data:
-            labels = la
+        labels = spec.label_array(graph.data)
     dev = torch.device(device)
     col = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(dev)
-    chains, u_exts = _node_partner_body(
-        graph.spec, graph.stranded, join_on_data,
-        KM.to_torch(graph._lk_sorted, dev), col(graph._lk_ids, np.int64),
-        KM.to_torch(graph._rk_sorted, dev), col(graph._rk_ids, np.int64),
-        KM.to_torch(graph.first_kmers, dev), KM.to_torch(graph.last_kmers, dev),
-        col(graph.exts, np.int32), col(graph.base.sequences.length, np.int64),
-        col(valid, bool), col(labels, np.int32),
-    )
-    uid, pos, flip = (x.cpu().numpy() for x in (chains.uid, chains.pos, chains.flip))
-    nutg = chains.n_unitigs
-    live = uid >= 0
-    lids = np.nonzero(live)[0]
-    uid, pos, flip = uid[live], pos[live], flip[live]
-    if callable(data_reduce):
-        data_red = C._fold_closure(data_reduce, graph.data[lids], uid, pos, nutg)
-    else:
-        data_red = C._reduce_np(data_reduce, graph.data[lids], uid, nutg)
-    seqs = graph.base.sequences
-    seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length, lids, uid,
-                                          pos, flip, nutg)
-    rich_out = None
-    if graph.rich is not None:
-        rich_out = C._fold_objects(rich_reduce or _union_or_first, graph.rich, lids, uid, pos, nutg)
-    out = BaseGraph(k, graph.stranded)
-    out.add_flat(seq_flat, out_lengths, u_exts.cpu().numpy(), data_red, rich=rich_out)
-    dbg = out.finish(device=device)
-    dbg.fix_exts(None)
-    return dbg
+    fixed, chains, exts = _merge_nodes(
+        graph.spec, graph.stranded, *(x.to(dev) for x in graph._ends),
+        tuple(x.to(dev) for x in graph._index), col(graph.exts, np.int32),
+        col(graph.base.sequences.length, np.int64), col(valid, bool),
+        None if labels is None else col(labels, np.int32))
+    graph._set_exts(fixed.cpu().numpy())
+    return _merged_graph(graph.spec, graph.stranded, graph.base.sequences, graph.data, graph.rich,
+                         chains, exts, data_reduce=data_reduce,
+                         rich_reduce=rich_reduce or _union_or_first, device=device)

@@ -16,11 +16,13 @@ compression per bucket -> BaseGraph::combine -> compress_graph.
    count, with ``min_obs > 1`` the censored-extension repair against the
    shard's own census (cross-shard unknowns survive), and the kmer-level
    compression.
-4. **Stitch**: on the device (:func:`_global_stitch_device`: the shards'
-   unitig ends gathered by :func:`gather_ends`, JAX's ``all_gather``;
-   fix_exts against every node, node-level partners and ``link_chains``,
-   and the closing fix_exts), or on the host through
-   ``graph.compress_graph`` (``collective=False``).  Over several processes
+4. **Stitch**: compress_graph's node merge (``graph._merge_nodes``: fix_exts
+   against every node, node-level partners and ``link_chains``, and the
+   closing fix_exts), over the shards' unitig ends gathered by
+   :func:`gather_ends` (JAX's ``all_gather``; :func:`_global_stitch_device`),
+   then its host half (``graph._merged_graph``); or, with
+   ``collective=False``, ``graph.compress_graph`` over the combined shard
+   graphs, the same merge over their own index.  Over several processes
    every process gathers every shard's ends and unitigs
    (:func:`gather_ends`, :func:`gather_unitigs`, ``all_gather``) and runs
    the stitch itself, so all of them return the same graph.
@@ -49,8 +51,8 @@ from tpu_debruijn_torch import kmer as KM
 from tpu_debruijn_torch import msp as M
 from tpu_debruijn_torch.graph import (
     BaseGraph,
-    _fix_exts_device,
-    _node_partner_body,
+    _merge_nodes,
+    _merged_graph,
     compress_graph,
     sorted_ends,
 )
@@ -248,12 +250,6 @@ def dest_histogram(k: int, p: int, n_shards: int, bases, lengths, *, stranded: b
     return hist
 
 
-def _empty_chains(device) -> C.Chains:
-    z = torch.zeros(0, dtype=torch.int64, device=device)
-    return C.Chains(uid=z, pos=z, flip=z.bool(), n_unitigs=0, length=z, first_item=z,
-                    last_item=z, first_flip=z, last_flip=z)
-
-
 def _shard_step(plan: ShardPlan, sub, slen, sexts, slab, data_reduce, stages: Stages):
     """One shard's count (with ``min_obs > 1``, the repair of extensions onto
     kmers censored in this shard's own census) and compression: (table,
@@ -271,7 +267,7 @@ def _shard_step(plan: ShardPlan, sub, slen, sexts, slab, data_reduce, stages: St
     with stages("compress"):
         if len(table) == 0:
             z = torch.zeros(0, dtype=torch.int64, device=dev)
-            return table, _empty_chains(dev), z.to(torch.int32), z
+            return table, C._empty_chains(dev), z.to(torch.int32), z
         if report_all:
             table.exts = F.remove_censored_exts_device(spec, plan.stranded, table.kmers,
                                                        table.exts, table.all_kmers)
@@ -293,11 +289,10 @@ def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts, mesh: Logical
     cap + slot`` without the padding); chain ids follow the least node id,
     so the final graph comes out node for node as JAX's.
 
-    1. fix_exts against the global node set: cross-shard extensions resolve
-       onto another shard's unitig end, or drop;
-    2. node-level partners and ``link_chains`` (try_extend_node rules);
-    3. fix_exts of the final unitigs (compress_graph's closing fix_exts,
-       compression.rs:332).
+    The merge is compress_graph's (``graph._merge_nodes``) over every node:
+    fix_exts against the global node set (cross-shard extensions resolve
+    onto another shard's unitig end, or drop), node-level partners and
+    ``link_chains``, and fix_exts of the final unitigs.
     """
     spec, stranded = plan.spec, plan.stranded
     parts = []
@@ -307,22 +302,10 @@ def _global_stitch_device(plan: ShardPlan, tables, chains, u_exts, mesh: Logical
                       ue, ch.length))
     with stages("gather"):
         g_fk, g_lk, g_exts, g_len = gather_ends(parts, mesh, stages.stats)
-    m = g_fk.shape[0]
-    dev = g_fk.device
-    if m == 0:
-        return _empty_chains(dev), g_exts
-    lk_idx, rk_idx = sorted_ends(g_fk), sorted_ends(g_lk)
-    fixed = _fix_exts_device(spec, stranded, *lk_idx, *rk_idx, g_fk, g_lk, g_exts)
-    gchains, gu_exts = _node_partner_body(
-        spec, stranded, False, *lk_idx, *rk_idx, g_fk, g_lk, fixed, g_len + spec.k - 1,
-        torch.ones(m, dtype=torch.bool, device=dev), torch.zeros(m, dtype=torch.int32, device=dev))
-    fi, li = gchains.first_item, gchains.last_item
-    final_fk = torch.where(gchains.first_flip.bool()[:, None], KM.rc(spec, gather_rows(g_lk, fi)),
-                           gather_rows(g_fk, fi))
-    final_lk = torch.where(gchains.last_flip.bool()[:, None], KM.rc(spec, gather_rows(g_fk, li)),
-                           gather_rows(g_lk, li))
-    final_exts = _fix_exts_device(spec, stranded, *sorted_ends(final_fk), *sorted_ends(final_lk),
-                                  final_fk, final_lk, gu_exts)
+    valid = torch.ones(g_fk.shape[0], dtype=torch.bool, device=g_fk.device)
+    _, gchains, final_exts = _merge_nodes(spec, stranded, g_fk, g_lk,
+                                          sorted_ends(g_fk) + sorted_ends(g_lk), g_exts,
+                                          g_len + spec.k - 1, valid)
     return gchains, final_exts
 
 
@@ -478,10 +461,11 @@ def assemble_sharded(
 
     Each shard's unitigs assemble on the device; unitig data is the shard's
     counts folded by ``data_reduce_compress``.  With ``collective`` (the
-    default) the stitch runs on the device and the host only stitches the
-    node sequences by the returned chain labels (``compress.stitch_flat``);
-    ``collective=False`` combines the shard graphs and re-compresses them
-    with ``graph.compress_graph``.  Both give the same graph.  ``stats``:
+    default) the node merge runs on the shards' gathered ends and the host
+    only stitches the node sequences by the returned chain labels
+    (``graph._merged_graph``); ``collective=False`` combines the shard
+    graphs and re-compresses them with ``graph.compress_graph``, the same
+    merge over the combined graph's index.  Both give the same graph.  ``stats``:
     see :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
     unitigs) and ``final_s`` (the host side of the stitch and the final
     graph), and within ``final_s`` with ``collective`` ``final.stitch_s``
@@ -515,20 +499,6 @@ def assemble_sharded(
         if not collective:
             return compress_graph(combined.finish(device=dev), data_reduce=data_reduce_compress,
                                   device=dev)
-        gchains, final_exts = out[5], out[6]
-        with stages("final.stitch"):
-            g_uid, g_pos, g_flip = (x.cpu().numpy()
-                                    for x in (gchains.uid, gchains.pos, gchains.flip))
-            g_n = gchains.n_unitigs
-            seqs = combined.sequences
-            seq_flat, out_lengths = C.stitch_flat(k, seqs._flat(), seqs.start, seqs.length,
-                                                  np.arange(len(combined)), g_uid, g_pos, g_flip,
-                                                  g_n)
-            if callable(data_reduce_compress):
-                data_red = C._fold_closure(data_reduce_compress, combined.data, g_uid, g_pos, g_n)
-            else:
-                data_red = C._reduce_np(data_reduce_compress, combined.data, g_uid, g_n)
-        with stages("final.finish"):
-            final = BaseGraph(k, stranded)
-            final.add_flat(seq_flat, out_lengths, final_exts.cpu().numpy(), data_red)
-            return final.finish(device=dev)
+        return _merged_graph(spec, stranded, combined.sequences, combined.data, None, out[5],
+                             out[6], data_reduce=data_reduce_compress, rich_reduce=None,
+                             device=dev, stage=lambda name: stages("final." + name))
