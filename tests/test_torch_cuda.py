@@ -831,3 +831,40 @@ def test_msp_scan_reads_kernel_matches_plain(cuda, r, l, k, p, score, kind):
     torch.cuda.synchronize()
     for g, x in zip(got, want):
         assert g.shape == x.shape == (r, l - k + 1) and torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["words", "bytes"])
+def test_stitch_device_on_card_matches_stitch_flat(cuda, form):
+    """The merge's device stitch at the command line's size: 882,000 nodes of
+    31-56 bases (~38.8M source bases) in 31,500 unitigs of 28 nodes, a
+    third of the nodes flipped, against the host's ``stitch_flat``; prints
+    the device milliseconds a call (CUDA events over 5 calls after one)."""
+    from tpu_debruijn_torch import compress as TC
+    from tpu_debruijn_torch.dna import pack_bases
+
+    k, n, per = 31, 882_000, 28
+    rng = np.random.default_rng(21)
+    lens = rng.integers(k, k + 26, n).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    flat = rng.integers(0, 4, int(lens.sum())).astype(np.uint8)
+    nodes = rng.permutation(n).astype(np.int64)
+    uid = np.arange(n, dtype=np.int64) // per
+    pos = np.concatenate([rng.permutation(per) for _ in range(n // per)]).astype(np.int64)
+    flip = rng.random(n) < 1 / 3
+    nutg = n // per
+    want_flat, want_lens = TC.stitch_flat(k, flat, starts, lens, nodes, uid, pos, flip, nutg)
+    src = torch.from_numpy(flat if form == "bytes" else pack_bases(flat).view(np.int32))
+    args = [k, src.to(cuda)] + [torch.from_numpy(x).to(cuda)
+                                for x in (starts, lens, nodes, uid, pos, flip)] + [nutg]
+    words, got_lens = TC.stitch_device(*args)
+    assert torch.equal(got_lens.cpu(), torch.from_numpy(want_lens))
+    assert np.array_equal(words.cpu().numpy().view(np.uint32), pack_bases(want_flat))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        TC.stitch_device(*args)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"stitch_device {form}: {len(flat)} source bases, {len(want_flat)} out, "
+          f"{start.elapsed_time(end) / 5:.4f} ms a call")

@@ -26,8 +26,9 @@ Unitig sequences are assembled from the chain labels on the device
 (:func:`assemble_unitigs_device`: only the bases and the per-unitig arrays
 cross to the host) under every policy; :func:`assemble_unitigs` assembles
 them on the host from chain labels pulled there (the read-ordered path's
-:func:`assemble_chains`).  :func:`stitch_flat` joins node sequences along
-node-level chains on the host (``graph.compress_graph``, the shard stitch).
+:func:`assemble_chains`).  :func:`stitch_device` joins node sequences along
+node-level chains on the device, into packed words (``graph.compress_graph``,
+the shard stitch); :func:`stitch_flat` is its host form.
 
 The policy layer (compression.rs:34-98): :class:`CompressionSpec` and its
 two shipped forms fold per-kmer data along unitigs with a named reduction
@@ -740,6 +741,92 @@ def assemble_unitigs_device(spec: KmerSpec, kmers: torch.Tensor, chains: Chains,
         0, chains.uid, counts.to(torch.int64))
     data = torch.where(chains.length > F.COUNT_MAX, F.COUNT_MAX, sums.clamp(max=F.COUNT_MAX))
     return seq, out_len, data.to(torch.int32)
+
+
+_PASS_WORDS = 1 << 16  # output words a pass of the device stitch (~70 MB of per-base work)
+
+
+def _words_of(bases: torch.Tensor) -> torch.Tensor:
+    """(16 m,) 2-bit codes -> (m,) words, first base highest, their uint32
+    bits held as int32 (``dna.pack_bases``' words)."""
+    shifts = 30 - 2 * torch.arange(16, dtype=torch.int64, device=bases.device)
+    w = (bases.reshape(-1, 16).to(torch.int64) << shifts).sum(1)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def pack_words(bases: torch.Tensor) -> torch.Tensor:
+    """(L,) 2-bit codes -> (ceil(L / 16),) int32 words on their device,
+    first base highest and the last word zero-padded: ``PackedSeqSet``'s
+    words, bit for bit.  Packed ``_PASS_WORDS`` words at a time."""
+    nw = -(-bases.shape[0] // 16)
+    out = torch.empty(nw, dtype=torch.int32, device=bases.device)
+    for lo in range(0, nw, _PASS_WORDS):
+        hi = min(nw, lo + _PASS_WORDS)
+        chunk = bases[16 * lo : 16 * hi]
+        pad = torch.zeros(16 * (hi - lo) - chunk.shape[0], dtype=chunk.dtype, device=chunk.device)
+        out[lo:hi] = _words_of(torch.cat([chunk, pad]))
+    return out
+
+
+def stitch_device(k: int, src: torch.Tensor, src_starts: torch.Tensor, src_lens: torch.Tensor,
+                  node_ids: torch.Tensor, uid: torch.Tensor, pos: torch.Tensor,
+                  flip: torch.Tensor, nutg: int):
+    """:func:`stitch_flat` on the device of ``uid``: oriented node sequences
+    concatenated per unitig, the K - 1 overlap dropped after position 0,
+    output packed as 2-bit words.
+
+    ``src`` holds the node sequences, as (L,) uint8 codes or as
+    (ceil(L / 16),) int32 words (first base highest, as ``PackedSeqSet``
+    stores them); node i's bases are ``src_lens[i]`` from ``src_starts[i]``
+    (int64).  ``node_ids`` are the (m,) nodes taking part, with their chain
+    labels ``uid`` (0..nutg - 1), ``pos`` and ``flip``.  Each output base is
+    read from its source base by one gather and packed at once,
+    ``_PASS_WORDS`` output words a pass, so no per-base array outlives its
+    pass.  The total is read once, the only wait on the device.
+
+    Returns (words (ceil(T / 16),) int32, out_lengths (nutg,) int64), on the
+    device, T the bases written.  ``stitch_device.calls`` and
+    ``stitch_device.bases`` count calls and bases written, over every call.
+    """
+    dev = uid.device
+    _STITCH_COUNTS.calls += 1
+    if nutg == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int64, device=dev))
+    if src.dtype == torch.uint8:
+        src = pack_words(src)
+    i64 = lambda t: t.to(device=dev, dtype=torch.int64)
+    uid, pos = i64(uid), i64(pos)
+    order = torch.argsort((uid << 32) | pos)  # path order; (uid, pos) pairs are unique
+    nid = gather_rows(i64(node_ids), order)
+    start, length = gather_rows(i64(src_starts), nid), gather_rows(i64(src_lens), nid)
+    skip = torch.where(gather_rows(pos, order) > 0, k - 1, 0)
+    step = 1 - 2 * gather_rows(i64(flip), order)  # +1 forward, -1 reverse-complemented
+    contrib = length - skip
+    ends = torch.cumsum(contrib, 0)  # each node's end in the output
+    out_len = torch.zeros(nutg, dtype=torch.int64, device=dev).index_add_(
+        0, gather_rows(uid, order), contrib)
+    begin = ends - contrib
+    first = torch.where(step < 0, start + length - 1 - skip, start + skip)  # its first source base
+    total = int(ends[-1])
+    _STITCH_COUNTS.bases += total
+    nw = -(-total // 16)
+    words = torch.empty(nw, dtype=torch.int32, device=dev)
+    for lo in range(0, nw, _PASS_WORDS):
+        hi = min(nw, lo + _PASS_WORDS)
+        o = torch.arange(16 * lo, 16 * hi, device=dev)
+        s = torch.searchsorted(ends, o, right=True)  # the node of each output base
+        st = gather_rows(step, s)
+        at = gather_rows(first, s) + st * (o - gather_rows(begin, s))
+        b = (gather_rows(src, at >> 4) >> (30 - 2 * (at & 15))) & 3
+        b = torch.where(st < 0, 3 - b, b)
+        words[lo:hi] = _words_of(torch.where(o < total, b, 0))
+    return words, out_len
+
+
+stitch_device.calls = 0  # calls, over every call
+stitch_device.bases = 0  # bases written, over every call
+_STITCH_COUNTS = stitch_device  # where the counts go, should a caller rebind the module's name
 
 
 def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device="cuda"):

@@ -219,16 +219,22 @@ def sorted_ends(kmers: torch.Tensor):
     return gather_rows(kmers, ids), ids
 
 
-def _end_kmers(spec: KmerSpec, seqs: PackedSeqSet, device):
+def _store_words(seqs: PackedSeqSet, device) -> torch.Tensor:
+    """The store's 2-bit words (first base highest) on ``device``, their
+    uint32 bits held as int32: one upload."""
+    return torch.from_numpy(seqs.packed_words().view(np.int32)).to(device)
+
+
+def _end_kmers(spec: KmerSpec, words: torch.Tensor, seqs: PackedSeqSet):
     """Every node's first and last kmer, (n, W) int64 limbs each, read on
-    ``device`` from the store's 2-bit words (first base highest): limb j of
-    a kmer at base s is the 16 bases ending at s + K - 16 (W - 1 - j), from
-    two words; zero words pad the stream at both ends."""
+    the device of ``words``, the store's words (:func:`_store_words`): limb
+    j of a kmer at base s is the 16 bases ending at s + K - 16 (W - 1 - j),
+    from two words; zero words pad the stream at both ends."""
     k, w = spec.k, spec.w
     lens, starts = seqs.length, seqs.start
-    words = np.concatenate([np.zeros(1, np.uint32), seqs.packed_words(), np.zeros(1, np.uint32)])
-    words = torch.from_numpy(words.view(np.int32)).to(device).to(torch.int64) & KM.M32
-    at = torch.from_numpy(np.concatenate([starts, starts + lens - k])).to(device)
+    z = torch.zeros(1, dtype=torch.int64, device=words.device)
+    words = torch.cat([z, words.to(torch.int64) & KM.M32, z])
+    at = torch.from_numpy(np.concatenate([starts, starts + lens - k])).to(words.device)
     pos = at[:, None] + (k + 16 - 16 * (w - torch.arange(w, device=words.device)))
     q, r2 = (pos >> 4).reshape(-1), 2 * (pos & 15)
     hi = gather_rows(words, q).reshape(pos.shape) << r2
@@ -262,18 +268,31 @@ def _fix_exts(links, exts: torch.Tensor, valid: Optional[torch.Tensor] = None) -
 
 
 class DebruijnGraph:
-    """Walkable compressed graph: BaseGraph + the find_link index on
-    ``device``: end kmers (``_ends``) and :func:`sorted_ends` of each."""
+    """Walkable compressed graph: BaseGraph + the store's 2-bit words on
+    ``device`` (``_words``) + the find_link index there: end kmers
+    (``_ends``) and :func:`sorted_ends` of each."""
 
     def __init__(self, base: BaseGraph, device="cuda"):
+        self._build(base, torch.device(device), None)
+
+    @classmethod
+    def _on_words(cls, base: BaseGraph, device, words: torch.Tensor) -> "DebruijnGraph":
+        """The graph of ``base`` whose store's words already lie on
+        ``device`` as ``words``: nothing is uploaded again."""
+        graph = cls.__new__(cls)
+        graph._build(base, torch.device(device), words)
+        return graph
+
+    def _build(self, base: BaseGraph, device: torch.device, words: Optional[torch.Tensor]):
         self.base = base
         self.spec = base.spec
         self.stranded = base.stranded
-        self.device = torch.device(device)
+        self.device = device
         self.exts = np.asarray(base.exts, np.int32)
         self.data = np.asarray(base.data, np.int32)
         self.rich = base.rich
-        first_k, last_k = self._ends = _end_kmers(self.spec, base.sequences, self.device)
+        self._words = _store_words(base.sequences, device) if words is None else words
+        first_k, last_k = self._ends = _end_kmers(self.spec, self._words, base.sequences)
         self._index = sorted_ends(first_k) + sorted_ends(last_k)
         self._links = None  # where each extension lands: independent of exts
         self._edges = None
@@ -825,26 +844,38 @@ def _merge_nodes(spec, stranded, first_k, last_k, index, exts, node_len, valid, 
                                     u_exts)
 
 
-def _merged_graph(spec: KmerSpec, stranded: bool, seqs: PackedSeqSet, data, rich, chains,
-                  exts, *, data_reduce, rich_reduce, device, stage=None) -> "DebruijnGraph":
-    """The merge's host half: ``seqs`` stitched by the chains (K - 1
-    overlaps dropped), ``data`` and ``rich`` folded, then the merged graph
-    with ``exts`` on ``device``.  ``stage(name)``, where given, wraps the
-    stitch (``"stitch"``) and the build (``"finish"``)."""
+def _merged_graph(spec: KmerSpec, stranded: bool, src: torch.Tensor, src_lens: torch.Tensor,
+                  data, rich, chains, exts, *, data_reduce, rich_reduce, device,
+                  stage=None) -> "DebruijnGraph":
+    """The merge's second half: the node sequences ``src`` (on the chains'
+    device, as 2-bit words or a byte a base; node i's ``src_lens[i]`` bases
+    follow node i - 1's) stitched there by the chains
+    (:func:`compress.stitch_device`, K - 1 overlaps dropped), ``data`` and
+    ``rich`` folded on the host, then the merged graph with ``exts`` on
+    ``device``, its store filled from the stitched words in one copy to the
+    host and its index read from them where they lie.  ``stage(name)``,
+    where given, wraps the stitch (``"stitch"``) and the build
+    (``"finish"``)."""
     stage = stage or (lambda name: contextlib.nullcontext())
     with stage("stitch"):
-        uid, pos, flip = (x.cpu().numpy() for x in (chains.uid, chains.pos, chains.flip))
         nutg = chains.n_unitigs
-        lids = np.nonzero(uid >= 0)[0]
-        uid, pos, flip = uid[lids], pos[lids], flip[lids]
-        seq_flat, lengths = C.stitch_flat(spec.k, seqs._flat(), seqs.start, seqs.length, lids, uid,
-                                          pos, flip, nutg)
+        live = torch.nonzero(chains.uid >= 0).flatten()
+        words, lengths = C.stitch_device(spec.k, src, torch.cumsum(src_lens, 0) - src_lens,
+                                         src_lens, live, chains.uid[live], chains.pos[live],
+                                         chains.flip[live], nutg)
+        lids = live.cpu().numpy()
+        uid, pos = chains.uid.cpu().numpy()[lids], chains.pos.cpu().numpy()[lids]
         data = C._fold_host(data_reduce, np.asarray(data)[lids], uid, pos, nutg)
         if rich is not None:
             rich = C._fold_objects(rich_reduce, rich, lids, uid, pos, nutg)
+        seqs = PackedSeqSet.from_packed(words.cpu().numpy().view(np.uint32),
+                                        lengths.cpu().numpy())
     with stage("finish"):
-        out = _flat_graph(spec.k, stranded, seq_flat, lengths, exts.cpu().numpy(), data, rich)
-        return out.finish(device=device)
+        out = BaseGraph(spec.k, stranded)
+        out.sequences = seqs
+        out.exts, out.data = exts.cpu().numpy(), data
+        out._rich_extend(0, rich, nutg)
+        return DebruijnGraph._on_words(out, device, words.to(device))
 
 
 def _union_or_first(a, b):
@@ -880,12 +911,12 @@ def compress_graph(graph: DebruijnGraph, censor_nodes: Optional[Sequence[int]] =
         labels = spec.label_array(graph.data)
     dev = torch.device(device)
     col = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(dev)
+    node_len = col(graph.base.sequences.length, np.int64)
     fixed, chains, exts = _merge_nodes(
         graph.spec, graph.stranded, *(x.to(dev) for x in graph._ends),
-        tuple(x.to(dev) for x in graph._index), col(graph.exts, np.int32),
-        col(graph.base.sequences.length, np.int64), col(valid, bool),
-        None if labels is None else col(labels, np.int32))
+        tuple(x.to(dev) for x in graph._index), col(graph.exts, np.int32), node_len,
+        col(valid, bool), None if labels is None else col(labels, np.int32))
     graph._set_exts(fixed.cpu().numpy())
-    return _merged_graph(graph.spec, graph.stranded, graph.base.sequences, graph.data, graph.rich,
-                         chains, exts, data_reduce=data_reduce,
+    return _merged_graph(graph.spec, graph.stranded, graph._words.to(dev), node_len, graph.data,
+                         graph.rich, chains, exts, data_reduce=data_reduce,
                          rich_reduce=rich_reduce or _union_or_first, device=device)

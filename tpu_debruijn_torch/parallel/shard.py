@@ -20,9 +20,10 @@ compression per bucket -> BaseGraph::combine -> compress_graph.
    against every node, node-level partners and ``link_chains``, and the
    closing fix_exts), over the shards' unitig ends gathered by
    :func:`gather_ends` (JAX's ``all_gather``; :func:`_global_stitch_device`),
-   then its host half (``graph._merged_graph``); or, with
-   ``collective=False``, ``graph.compress_graph`` over the combined shard
-   graphs, the same merge over their own index.  Over several processes
+   then its second half (``graph._merged_graph``), which stitches the shard
+   unitigs' bases on the device where :func:`_shard_unitigs` assembled
+   them; or, with ``collective=False``, ``graph.compress_graph`` over the
+   combined shard graphs, the same merge over their own index.  Over several processes
    every process gathers every shard's ends and unitigs
    (:func:`gather_ends`, :func:`gather_unitigs`, ``all_gather``) and runs
    the stitch itself, so all of them return the same graph.
@@ -213,8 +214,8 @@ def gather_ends(parts: Sequence[tuple], mesh: Optional[LogicalMesh] = None,
 
 
 def gather_unitigs(flat: tuple, mesh: LogicalMesh, stats: Optional[dict] = None) -> tuple:
-    """Every process's shard unitigs ((bases, lengths, exts, data) numpy, as
-    :func:`_shard_unitigs` gives them) on every process, concatenated in
+    """Every process's shard unitigs ((bases, lengths, exts, data) numpy,
+    host copies of what :func:`_shard_unitigs` gives) on every process, concatenated in
     rank order, so in shard order: one byte buffer a process, its unitig
     count, its (lengths, exts, data) rows and its bases, by
     :func:`all_gather_bytes`."""
@@ -421,20 +422,21 @@ def _no_intervals(plan: ShardPlan, dev) -> list:
             torch.zeros(0, dtype=torch.int64, device=dev)]
 
 
-def _shard_unitigs(spec: KmerSpec, tables, chains, u_exts, contrib, data_reduce) -> tuple:
-    """The shards' unitigs, assembled on the device and concatenated in
-    shard order: (bases uint8, lengths int64, exts int32, data int32) numpy,
-    the data each shard's counts folded by ``data_reduce``."""
-    out = [[np.zeros(0, np.uint8)], [np.zeros(0, np.int64)], [np.zeros(0, np.int32)],
-           [np.zeros(0, np.int32)]]
+def _shard_unitigs(spec: KmerSpec, tables, chains, u_exts, contrib, data_reduce, dev) -> tuple:
+    """The shards' unitigs, assembled on ``dev`` and concatenated in shard
+    order: bases (uint8) and lengths (int64) on ``dev``, exts and data
+    (int32) numpy, the data each shard's counts folded by ``data_reduce``."""
+    seqs = [torch.zeros(0, dtype=torch.uint8, device=dev)]
+    lens = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    exts, data = [np.zeros(0, np.int32)], [np.zeros(0, np.int32)]
     for table, ch, ue, cb in zip(tables, chains, u_exts, contrib):
         if ch.n_unitigs:
             seq, out_len = C.assemble_unitigs_device(spec, table.kmers, ch, cb)
-            data = C._fold_data(data_reduce, table.counts, ch)
-            for lst, x in zip(out, (seq.cpu().numpy(), out_len.cpu().numpy(),
-                                    ue.to(torch.int32).cpu().numpy(), data)):
-                lst.append(x)
-    return tuple(np.concatenate(x) for x in out)
+            seqs.append(seq)
+            lens.append(out_len)
+            exts.append(ue.to(torch.int32).cpu().numpy())
+            data.append(C._fold_data(data_reduce, table.counts, ch))
+    return torch.cat(seqs), torch.cat(lens), np.concatenate(exts), np.concatenate(data)
 
 
 def assemble_sharded(
@@ -461,23 +463,23 @@ def assemble_sharded(
 
     Each shard's unitigs assemble on the device; unitig data is the shard's
     counts folded by ``data_reduce_compress``.  With ``collective`` (the
-    default) the node merge runs on the shards' gathered ends and the host
-    only stitches the node sequences by the returned chain labels
-    (``graph._merged_graph``); ``collective=False`` combines the shard
-    graphs and re-compresses them with ``graph.compress_graph``, the same
-    merge over the combined graph's index.  Both give the same graph.  ``stats``:
-    see :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
-    unitigs) and ``final_s`` (the host side of the stitch and the final
+    default) the node merge runs on the shards' gathered ends, and the node
+    sequences are stitched by the returned chain labels on the device where
+    the shards' bases lie (``graph._merged_graph``); ``collective=False``
+    combines the shard graphs on the host and re-compresses them with
+    ``graph.compress_graph``, the same merge over the combined graph's
+    index.  Both give the same graph.  ``stats``: see
+    :func:`sharded_tables`; it also receives ``assemble_s`` (the shard
+    unitigs) and ``final_s`` (the stitch's second half and the final
     graph), and within ``final_s`` with ``collective`` ``final.stitch_s``
-    (the chain pulls, ``stitch_flat`` and the data reduce) and
-    ``final.finish_s`` (the final graph's ``add_flat`` and ``finish``).
-    The shards' unitigs are added to the combined graph between the two
-    stages, untimed (a few array appends).
+    (the device stitch, its words and the chain labels to the host and the
+    data reduce) and ``final.finish_s`` (the final graph's store and
+    ``finish``).
 
     On a distributed mesh each process assembles its own shards' unitigs
     and :func:`gather_unitigs` brings every shard's to every process (one
-    more ``gather_s``), which then stitches them as one process would:
-    every process returns the same graph
+    more ``gather_s``), which then uploads the bases once and stitches them
+    as one process would: every process returns the same graph
     (``parallel.assemble_multiprocess``).
     """
     mesh = _mesh(mesh, device)
@@ -489,16 +491,20 @@ def assemble_sharded(
     plan, tables, chains, u_exts, contrib = out[:5]
     spec = plan.spec
     with stages("assemble"):
-        flat = _shard_unitigs(spec, tables, chains, u_exts, contrib, data_reduce_compress)
+        bases, lengths, exts, data = _shard_unitigs(spec, tables, chains, u_exts, contrib,
+                                                    data_reduce_compress, dev)
+    if mesh.distributed or not collective:  # the host takes the bases
+        bases, lengths = bases.cpu().numpy(), lengths.cpu().numpy()
     if mesh.distributed:
         with stages("gather"):
-            flat = gather_unitigs(flat, mesh, stats)
-    combined = BaseGraph(k, stranded)
-    combined.add_flat(*flat)
+            bases, lengths, exts, data = gather_unitigs((bases, lengths, exts, data), mesh, stats)
     with stages("final"):
         if not collective:
+            combined = BaseGraph(k, stranded)
+            combined.add_flat(bases, lengths, exts, data)
             return compress_graph(combined.finish(device=dev), data_reduce=data_reduce_compress,
                                   device=dev)
-        return _merged_graph(spec, stranded, combined.sequences, combined.data, None, out[5],
-                             out[6], data_reduce=data_reduce_compress, rich_reduce=None,
-                             device=dev, stage=lambda name: stages("final." + name))
+        return _merged_graph(spec, stranded, torch.as_tensor(bases, device=dev),
+                             torch.as_tensor(lengths, device=dev), data, None, out[5], out[6],
+                             data_reduce=data_reduce_compress, rich_reduce=None, device=dev,
+                             stage=lambda name: stages("final." + name))
