@@ -827,7 +827,11 @@ def merge_unique(keys, exts, counts, c_keys, c_exts, c_counts):
     most once on each side, so a key found on both adds its counts,
     saturating at 65535, and ORs its exts into the table's row (in place);
     a new key's row goes to its lower bound in the table plus the count of
-    new rows before it.  Returns the merged (keys, exts, counts)."""
+    new rows before it.  Returns the merged (keys, exts, counts).
+    ``merge_unique.calls`` and ``merge_unique.rows`` count calls and the
+    table rows written anew (n + n_new; none when no key is new), over
+    every call."""
+    _MERGE_COUNTS.calls += 1
     idx, found = S.searchsorted_limbs(keys, c_keys)
     hit = torch.nonzero(found).flatten()
     if hit.shape[0]:
@@ -838,6 +842,7 @@ def merge_unique(keys, exts, counts, c_keys, c_exts, c_counts):
     n, n_new = keys.shape[0], new.shape[0]
     if n_new == 0:
         return keys, exts, counts
+    _MERGE_COUNTS.rows += n + n_new
     dev = keys.device
     lower = gather_rows(idx, new)  # ascending: the chunk is sorted
     at = lower + torch.arange(n_new, device=dev)
@@ -851,6 +856,11 @@ def merge_unique(keys, exts, counts, c_keys, c_exts, c_counts):
         o[rest] = t
         out.append(o)
     return tuple(out)
+
+
+merge_unique.calls = 0  # calls, over every call
+merge_unique.rows = 0  # table rows written anew, over every call
+_MERGE_COUNTS = merge_unique  # where the counts go, should a caller rebind the module's name
 
 
 def _merge_sorted_parts(spec: KmerSpec, plist, data_reduce: str):
@@ -932,6 +942,7 @@ def filter_kmers_streaming(
     unique_capacity: Optional[int] = None,
     colored: bool = False,
     device="cuda",
+    stats: Optional[dict] = None,
 ):
     """Memory-bounded streaming counting (filter.rs:151-183), the JAX
     package's ``filter_kmers_streaming`` on ``device``.
@@ -970,6 +981,16 @@ def filter_kmers_streaming(
 
     Each chunk reads its table's size to the host (``torch.nonzero``) a few
     times; nothing else waits for the card.
+
+    ``stats``, a dict, receives the seconds of four stages
+    (:class:`~tpu_debruijn_torch.stages.Stages`): ``stream.read_s`` (the
+    pull of each item from ``seqs``, one entry an item and one for the
+    pull that ends it: for :func:`~tpu_debruijn_torch.io.stream_fastx_blocks`
+    the decode of a block), ``stream.count_s`` (a chunk's upload, unpack
+    and count), ``stream.merge_s`` (its merge into the table) and
+    ``stream.finish_s`` (``min_obs`` or the colored roll-up, once a call);
+    under the device merge ``stats["stream.merge_rows"]`` lists the table
+    rows each merge wrote anew (:func:`merge_unique`).
     """
     spec = KmerSpec(k)
     device = torch.device(device)
@@ -986,6 +1007,7 @@ def filter_kmers_streaming(
     # the JAX package's row width: the widest read so far rounded up to 32,
     # then over K to 16 (the slot indices of 'obs_min' count it)
     cap = None if read_len_cap is None else _round_up(read_len_cap, 32)
+    stage = Stages(stats, device)
     parts = []
     table = (torch.zeros((0, spec.w + colored), dtype=torch.int64, device=device),
              torch.zeros(0, dtype=torch.int32, device=device),
@@ -996,28 +1018,37 @@ def filter_kmers_streaming(
         cap = need if cap is None else max(cap, need)
         return _round_up(max(cap, k), 16)
 
-    def count(bases: torch.Tensor, lengths, seq_exts, labels) -> None:
+    def count(bases: np.ndarray, lengths, seq_exts, labels, packed: bool = False) -> None:
+        """Count one chunk of host rows (``packed``: 2 bits a base) and merge
+        its table."""
         nonlocal table
-        lengths, seq_exts, labels = (torch.from_numpy(a).to(device) for a in (lengths, seq_exts, labels))
-        if merge == "device":
-            if colored:
+        with stage("stream.count"):
+            bases = torch.from_numpy(bases).to(device)
+            if packed:
+                bases = unpack_2bit(bases)
+            lengths, seq_exts, labels = (torch.from_numpy(a).to(device)
+                                         for a in (lengths, seq_exts, labels))
+            if merge == "device" and colored:
                 keys, ex, cn = _pair_keys(spec, bases, lengths, seq_exts, labels, stranded=stranded)
             else:
                 t = count_kmers(spec, bases, lengths, seq_exts, labels, stranded=stranded,
-                                min_obs=1, data_reduce="none", report_all=False)
+                                min_obs=1, data_reduce=data_reduce, report_all=False)
                 keys, ex, cn = t.kmers, t.exts, t.counts
-            table = merge_unique(*table, keys, ex, cn)
-            return
-        t = count_kmers(spec, bases, lengths, seq_exts, labels, stranded=stranded, min_obs=1,
-                        data_reduce=data_reduce, report_all=False)
-        parts.append((KM.to_numpy(t.kmers), t.exts.cpu().numpy(),
-                      t.counts.cpu().numpy().astype(np.int64), t.data.cpu().numpy()))
-        # LSM-style merging keeps host memory O(unique kmers) with a log
-        # factor (filter.rs:151-183)
-        while len(parts) >= 2 and 2 * len(parts[-1][0]) >= len(parts[-2][0]):
-            b = parts.pop()
-            a = parts.pop()
-            parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
+        with stage("stream.merge"):
+            if merge == "device":
+                rows = _MERGE_COUNTS.rows
+                table = merge_unique(*table, keys, ex, cn)
+                if stats is not None:
+                    stats.setdefault("stream.merge_rows", []).append(_MERGE_COUNTS.rows - rows)
+                return
+            parts.append((KM.to_numpy(keys), ex.cpu().numpy(), cn.cpu().numpy().astype(np.int64),
+                          t.data.cpu().numpy()))
+            # LSM-style merging keeps host memory O(unique kmers) with a log
+            # factor (filter.rs:151-183)
+            while len(parts) >= 2 and 2 * len(parts[-1][0]) >= len(parts[-2][0]):
+                b = parts.pop()
+                a = parts.pop()
+                parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
 
     def flush(chunk) -> None:
         if not chunk:
@@ -1026,7 +1057,7 @@ def filter_kmers_streaming(
         arr = np.zeros((len(chunk), width), np.uint8)
         for i, (s, _, _) in enumerate(chunk):
             arr[i, : len(s)] = s
-        count(torch.from_numpy(arr).to(device), np.array([len(s[0]) for s in chunk], np.int32),
+        count(arr, np.array([len(s[0]) for s in chunk], np.int32),
               np.array([s[1] for s in chunk], np.int32), np.array([s[2] for s in chunk], np.int32))
 
     def flush_block(item) -> None:
@@ -1041,8 +1072,7 @@ def filter_kmers_streaming(
             arr[:, :blen] = sub
             lengths = (np.full(n, blen, np.int32) if blens is None
                        else np.minimum(np.asarray(blens[lo : lo + n], np.int32), width))
-            count(torch.from_numpy(arr).to(device), lengths,
-                  _per_read(item[1], lo, n), _per_read(item[2], lo, n))
+            count(arr, lengths, _per_read(item[1], lo, n), _per_read(item[2], lo, n))
 
     def flush_packed(item: PackedReadBlock) -> None:
         if merge != "device":
@@ -1052,12 +1082,16 @@ def filter_kmers_streaming(
         for lo in range(0, item.packed.shape[0], chunk_reads):
             sub = np.ascontiguousarray(item.packed[lo : lo + chunk_reads], np.uint8)
             n = sub.shape[0]
-            count(unpack_2bit(torch.from_numpy(sub).to(device)),
-                  np.asarray(item.lengths[lo : lo + n], np.int32),
-                  _per_read(item.seq_exts, lo, n), _per_read(item.label, lo, n))
+            count(sub, np.asarray(item.lengths[lo : lo + n], np.int32),
+                  _per_read(item.seq_exts, lo, n), _per_read(item.label, lo, n), packed=True)
 
     chunk: list = []
-    for item in seqs:
+    items = iter(seqs)
+    while True:
+        with stage("stream.read"):
+            item = next(items, None)
+        if item is None:
+            break
         if isinstance(item, PackedReadBlock) or np.ndim(item[0]) == 2:
             flush(chunk)
             chunk = []
@@ -1071,21 +1105,22 @@ def filter_kmers_streaming(
             chunk = []
     flush(chunk)
 
-    if merge == "device":
-        if colored:
-            return _pair_table(spec, stranded, min_obs, *table)
-        keep = torch.nonzero(table[2] >= min_obs).flatten()
-        kmers, exts, counts = (gather_rows(t, keep) for t in table)
-        return KmerTable(spec, stranded, kmers, exts, counts, torch.zeros_like(counts))
-    if not parts:
-        return _empty_table(spec, stranded, device)
-    while len(parts) > 1:
-        b = parts.pop()
-        a = parts.pop()
-        parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
-    kmers, uexts, counts, udata = parts[0]
-    ucounts = np.minimum(counts, COUNT_MAX).astype(np.int32)
-    keep = ucounts >= min_obs
-    col = lambda a: torch.from_numpy(a[keep].astype(np.int32)).to(device)
-    return KmerTable(spec, stranded, KM.to_torch(kmers[keep], device), col(uexts), col(ucounts),
-                     col(udata))
+    with stage("stream.finish"):
+        if merge == "device":
+            if colored:
+                return _pair_table(spec, stranded, min_obs, *table)
+            keep = torch.nonzero(table[2] >= min_obs).flatten()
+            kmers, exts, counts = (gather_rows(t, keep) for t in table)
+            return KmerTable(spec, stranded, kmers, exts, counts, torch.zeros_like(counts))
+        if not parts:
+            return _empty_table(spec, stranded, device)
+        while len(parts) > 1:
+            b = parts.pop()
+            a = parts.pop()
+            parts.append(_merge_sorted_parts(spec, [a, b], data_reduce))
+        kmers, uexts, counts, udata = parts[0]
+        ucounts = np.minimum(counts, COUNT_MAX).astype(np.int32)
+        keep = ucounts >= min_obs
+        col = lambda a: torch.from_numpy(a[keep].astype(np.int32)).to(device)
+        return KmerTable(spec, stranded, KM.to_torch(kmers[keep], device), col(uexts),
+                         col(ucounts), col(udata))
