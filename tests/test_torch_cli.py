@@ -12,6 +12,11 @@ import numpy as np
 import pytest
 
 from tpu_debruijn_torch import assemble
+from tpu_debruijn_torch import compress as TC
+from tpu_debruijn_torch import filter as TF
+from tpu_debruijn_torch import graph as TG
+from tpu_debruijn_torch.clean import clean_tips
+from tpu_debruijn_torch.io import read_fastx
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -74,6 +79,36 @@ def test_cli_matches_reference(mode, fastq, tmp_path, monkeypatch, capsys):
     assert out["torch"][2][-1].startswith("total ") and len(out["torch"][0]) > 1000
     if mode == "clean_tips":
         assert b"\nL\t" in out["torch"][0]  # the substitutions leave branches after tip cleaning
+
+
+@pytest.mark.parametrize("mode", ["default", "clean_tips"])
+def test_cli_builds_graph_from_flat_buffers(mode, fastq, tmp_path, monkeypatch):
+    """run() builds its graph from the device compression's flat buffers:
+    with the per-unitig tuple route made to raise, it writes the GFA and
+    JSON bytes of a compress_kmers + from_compress_output graph of the same
+    table."""
+    k, min_obs = 31, (1 if mode == "clean_tips" else 2)
+    reads = [r for r in read_fastx(str(fastq)) if len(r) >= k]
+    table = TF.filter_kmers([(r, 0, 0) for r in reads], k, min_obs=min_obs, device="cpu")
+    graph = TG.from_compress_output(k, False, TC.compress_kmers(table, device="cpu"))
+    graph = graph.finish(device="cpu")
+    if mode == "clean_tips":
+        graph = clean_tips(graph, lambda node: node.len() < 2 * k, device="cpu")
+    graph.to_gfa(str(tmp_path / "want.gfa"))
+    with open(tmp_path / "want.json", "w") as f:
+        graph.to_json(lambda d: d, f)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the command line made a tuple a unitig")
+    monkeypatch.setattr(TC, "_nodes", refuse)
+    monkeypatch.setattr(TG, "from_compress_output", refuse)
+    argv = [str(fastq), "-o", str(tmp_path / "got.gfa"), "--json", str(tmp_path / "got.json"),
+            *MODES[mode], "--device", "cpu"]
+    stats = {}
+    assert len(assemble.run(argv, stats=stats)) == len(graph) > 0
+    assert len(stats["compress.nodes_s"]) == len(stats["graph.add_s"]) == 1
+    for ext in ("gfa", "json"):
+        assert (tmp_path / f"got.{ext}").read_bytes() == (tmp_path / f"want.{ext}").read_bytes()
 
 
 def test_cli_without_reads(tmp_path, capsys):

@@ -27,6 +27,7 @@ K, P = 31, 8
 NEW = {
     "filter_kmers": {"filter.pad", "filter.upload"},
     "compress_kmers": {"compress.nodes"},
+    "compress_kmers_flat_device": {"compress.nodes"},
     "clean_tips": {"clean.compress_graph"},
     "run": {"filter.pad", "filter.upload", "compress.nodes", "graph.add", "graph.finish",
             "clean.compress_graph"},
@@ -38,7 +39,7 @@ CHILDREN = {"count": ("filter.pad", "filter.upload"),
             "clean_tips": ("clean.compress_graph",), "final": ("final.stitch", "final.finish")}
 # the stages that were there before, with their entries a call
 OLD = {
-    "filter_kmers": {}, "compress_kmers": {}, "clean_tips": {},
+    "filter_kmers": {}, "compress_kmers": {}, "compress_kmers_flat_device": {}, "clean_tips": {},
     "run": {"read": 1, "count": 1, "compress": 1, "clean_tips": 1, "export": 1},
     "run_sharded": {"read": 1, "assemble_sharded": 1, "pad_reads": 1, "msp": 1, "exchange": 1,
                     "count": 8, "compress": 8, "stitch": 1, "gather": 1, "assemble": 1,
@@ -92,10 +93,12 @@ def call(entry, reads, fastq, tmp_path, stats, tag="out"):
     if entry == "filter_kmers":
         t = TF.filter_kmers([(r, 0, 0) for r in reads], K, min_obs=2, device=CPU, stats=stats)
         return [x.numpy() for x in (t.kmers, t.exts, t.counts, t.data)]
-    if entry in ("compress_kmers", "clean_tips"):
+    if entry in ("compress_kmers", "compress_kmers_flat_device", "clean_tips"):
         table = TF.filter_kmers([(r, 0, 0) for r in reads], K, min_obs=1, device=CPU)
         if entry == "compress_kmers":
             return TC.compress_kmers(table, device=CPU, stats=stats)
+        if entry == "compress_kmers_flat_device":
+            return list(TC.compress_kmers_flat_device(table, device=CPU, stats=stats))
         graph = TG.from_compress_output(K, False, TC.compress_kmers(table, device=CPU))
         return gfa(TCL.clean_tips(graph.finish(device=CPU), tip, device=CPU, stats=stats),
                    tmp_path / f"{tag}.gfa")

@@ -27,7 +27,7 @@ import torch
 from tpu_debruijn_torch import compress as C
 from tpu_debruijn_torch import filter as F
 from tpu_debruijn_torch.clean import clean_tips
-from tpu_debruijn_torch.graph import DebruijnGraph, from_compress_output
+from tpu_debruijn_torch.graph import DebruijnGraph, from_flat_output
 from tpu_debruijn_torch.io import read_fastx
 from tpu_debruijn_torch.parallel import assemble_sharded, make_mesh
 from tpu_debruijn_torch.stages import Stages
@@ -66,9 +66,10 @@ def run(argv=None, stats: Optional[dict] = None) -> Optional[DebruijnGraph]:
     every stage ending in a device synchronize
     (:class:`~tpu_debruijn_torch.stages.Stages`).  Within ``count``
     (not with ``--streaming``): ``filter.pad_s`` and ``filter.upload_s``;
-    within ``compress``: ``compress.nodes_s``, ``graph.add_s`` (the
-    per-node ``from_compress_output``) and ``graph.finish_s``; within
-    ``clean_tips``: ``clean.compress_graph_s``."""
+    within ``compress``: ``compress.nodes_s`` (the unitigs' flat buffers
+    copied to the host), ``graph.add_s`` (their one ``from_flat_output``)
+    and ``graph.finish_s``; within ``clean_tips``:
+    ``clean.compress_graph_s``."""
     args = parser().parse_args(argv)
     dev = torch.device(args.device)
     stage = Stages(stats, dev)
@@ -100,10 +101,10 @@ def run(argv=None, stats: Optional[dict] = None) -> Optional[DebruijnGraph]:
                                        stats=stats)
         print(f"{len(table)} filtered kmers", file=sys.stderr)
         with stage("compress"):
-            nodes = C.compress_kmers(table, device=dev, stats=stats)
+            flat = C.compress_kmers_flat_device(table, device=dev, stats=stats)
             del table
             with stage("graph.add"):
-                base = from_compress_output(args.k, args.stranded, nodes)
+                base = from_flat_output(args.k, args.stranded, *flat)
             with stage("graph.finish"):
                 graph = base.finish(device=dev)
     if args.clean_tips:

@@ -829,13 +829,16 @@ stitch_device.bases = 0  # bases written, over every call
 _STITCH_COUNTS = stitch_device  # where the counts go, should a caller rebind the module's name
 
 
-def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device="cuda"):
+def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device="cuda",
+                               stats: Optional[dict] = None):
     """KmerTable -> (seq_flat uint8, out_lengths int64, u_exts int32, data
     int32) as numpy, compressed and assembled on ``device``
     (:func:`assemble_unitigs_device`): the default policy, each unitig's
     data the u16-saturating sum of its counts.  ``cap_bases`` sizes the JAX
     package's static output buffer; it is accepted and has no effect, as
-    the output size is exact here.
+    the output size is exact here.  ``stats``, a dict, receives
+    ``compress.nodes_s``: the flat buffers' copies to the host
+    (:class:`~tpu_debruijn_torch.stages.Stages`).
     """
     if len(table) == 0:
         return (np.zeros(0, np.uint8), np.zeros(0, np.int64), np.zeros(0, np.int32),
@@ -846,7 +849,8 @@ def compress_kmers_flat_device(table, *, cap_bases: Optional[int] = None, device
     seq, out_len, data = assemble_unitigs_device(table.spec, kmers, chains, contrib,
                                                  table.counts.to(device))
     cpu = lambda t, dt: t.cpu().numpy().astype(dt)
-    return cpu(seq, np.uint8), cpu(out_len, np.int64), cpu(u_exts, np.int32), cpu(data, np.int32)
+    with Stages(stats, device)("compress.nodes"):
+        return cpu(seq, np.uint8), cpu(out_len, np.int64), cpu(u_exts, np.int32), cpu(data, np.int32)
 
 
 def compress_kmers(table, *, data_reduce="sum_sat_u16", join_on_data: bool = False,
