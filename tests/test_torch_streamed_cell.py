@@ -168,9 +168,9 @@ def test_cell_entries():
     bench = json.load(open(os.path.join(harness.ROOT, "BENCHMARK.json")))
     (w,) = [w for w in bench["workloads"] if w["name"] == CELL]
     assert w == {**w, "config": "ecoli_err_k31_streamed", "traffic": "streamed", "chips": 1}
-    assert bench["workloads"][-1] is w and len(w["why"]) <= 200
+    assert bench["workloads"][4] is w and len(w["why"]) <= 200  # appended after the colored cell
     (c,) = [c for c in bench["configs"] if c["name"] == w["config"]]
-    assert bench["configs"][-1] is c and c["reduced"] == [] and len(c["why"]) <= 200
+    assert bench["configs"][3] is c and c["reduced"] == [] and len(c["why"]) <= 200
     (lib,) = [c for c in bench["configs"] if c["name"] == "ecoli_err_k31"]
     assert c["source"] != lib["source"]
     cfg, lib_cfg = (json.load(open(os.path.join(harness.ROOT, x["file"]))) for x in (c, lib))
@@ -179,8 +179,9 @@ def test_cell_entries():
     assert cfg["guarantees"][:-1] == lib_cfg["guarantees"]
     mine = [m for m in bench["per_layer"] if CELL in m.get("workloads", [])]
     spans = ("count_s", "compress_s", "graph_s")  # the harness's spans, as the library cell's
-    assert [m["name"] for m in mine] == list(spans + METRICS) and mine[3:] == bench["per_layer"][-4:]
-    assert all(m["workloads"] == ["ecoli_err_k31.library", CELL] for m in mine[:3])
+    at = bench["per_layer"].index(mine[3])  # the four appended together
+    assert [m["name"] for m in mine] == list(spans + METRICS) and mine[3:] == bench["per_layer"][at : at + 4]
+    assert all(m["workloads"][:2] == ["ecoli_err_k31.library", CELL] for m in mine[:3])
     assert all(m["moves"] == "assembly_s" and m["better"] == "lower" and m["workloads"] == [CELL]
                and m["source"] == "program_span" for m in mine[3:])
     assert [m["layer"] for m in mine[3:]] == ["io", "filter", "filter", "filter"]

@@ -108,7 +108,9 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
     """Lower bound of each query row in lexicographically sorted rows.
 
     Returns (idx, found): idx = first row with sorted >= query, found =
-    idx in range and an exact match.
+    idx in range and an exact match.  ``searchsorted_limbs.wide_rows``
+    counts the query rows times the rounds that the W > 2 search ran, over
+    every call (a host integer from the shapes; W <= 2 counts nothing).
     """
     n, w = sorted_limbs.shape
     m = query_limbs.shape[0]
@@ -126,7 +128,9 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
     sorted_limbs = sorted_limbs.contiguous()  # once, not per gather
     lo = torch.zeros(m, dtype=torch.int64, device=dev)
     hi = torch.full((m,), n, dtype=torch.int64, device=dev)
-    for _ in range(max(1, math.ceil(math.log2(n + 1)))):
+    rounds = max(1, math.ceil(math.log2(n + 1)))
+    _SEARCH_COUNTS.wide_rows += m * rounds
+    for _ in range(rounds):
         mid = (lo + hi) // 2
         # a converged query (lo == hi) stays put: at lo = n the clamped
         # gather would read the last row and step past the end
@@ -135,6 +139,10 @@ def searchsorted_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor):
         hi = torch.where(is_lt, hi, mid)
     found = (lo < n) & lex_eq(gather_rows(sorted_limbs, lo), query_limbs)
     return lo, found
+
+
+searchsorted_limbs.wide_rows = 0  # query rows x rounds of the W > 2 search, over every call
+_SEARCH_COUNTS = searchsorted_limbs  # where the count goes, should a caller rebind the module's name
 
 
 def join_limbs(sorted_limbs: torch.Tensor, query_limbs: torch.Tensor,
